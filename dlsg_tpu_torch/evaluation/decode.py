@@ -1,0 +1,120 @@
+"""Decode functions (counterpart of the decode half of
+`dlsg_tpu/evaluation/evaluate.py`): greedy and beam search over a
+CapGnnModel, with the fused vocab-head kernel behind
+`use_fused_vocab_head`.
+
+Scoring (`evaluate()`), the two-pass decode and mesh-sharded decode are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from dlsg_tpu_torch.config import DLSGConfig
+from dlsg_tpu_torch.device import DeviceLike, resolve_device
+from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk
+from dlsg_tpu_torch.models.decoder import expand_pre_to_beams
+from dlsg_tpu_torch.ops.beam_search import beam_search
+from dlsg_tpu_torch.vocab import END_ID, START_ID
+
+
+def _use_fused_head(cfg: DLSGConfig) -> bool:
+    """'on' routes each beam step's vocab projection + top-k + logsumexp to
+    the vocab_head kernel; 'auto' resolves to off, as in the JAX package."""
+    return cfg.use_fused_vocab_head == "on"
+
+
+def make_decode_fn(
+    model,
+    cfg: DLSGConfig,
+    beam_size: Optional[int] = None,
+    return_alpha: bool = False,
+    device: DeviceLike = None,
+) -> Callable:
+    """Build decode(frames, regions) -> token ids [B, T] on `device`.
+
+    The model is moved to `device` (default `cuda`). beam_size None/1 ->
+    greedy; else beam search returning the top beam. With `return_alpha` the
+    decode also returns the attention weights of the emitted caption,
+    [B, T, 2P] (for beam search, reconstructed through the backpointers).
+    Inputs may be numpy arrays or tensors; they are moved to `device`."""
+    device = resolve_device(device)
+    model.to(device)
+    if 0 < cfg.decode_two_pass_t1 < cfg.max_words:
+        raise NotImplementedError("the two-pass decode (decode_two_pass_t1) is not ported yet")
+    beam = beam_size if beam_size is not None else cfg.beam_size
+
+    def _inputs(frames, regions):
+        return torch.as_tensor(frames, device=device), torch.as_tensor(regions, device=device)
+
+    if beam <= 1:
+
+        @torch.inference_mode()
+        def decode_greedy(frames, regions):
+            ids, _, _, alpha = model(*_inputs(frames, regions), None)
+            return (ids, alpha) if return_alpha else ids
+
+        return decode_greedy
+
+    beam_feats = _make_beam_from_feats(model, cfg, beam)
+
+    @torch.inference_mode()
+    def decode_beam(frames, regions):
+        obj, mot = model.encode(*_inputs(frames, regions))
+        preds, _, alphas, _ = beam_feats(obj, mot, cfg.max_words)
+        if return_alpha:
+            return preds[:, 0, :], alphas[:, 0]
+        return preds[:, 0, :]
+
+    return decode_beam
+
+
+def _make_beam_from_feats(model, cfg: DLSGConfig, beam: int) -> Callable:
+    """The proposals -> beam-decode core: fn(obj, mot, max_steps) ->
+    (preds [B, beam, T], log_probs [B, beam], alphas [B, beam, T, 2P],
+    finished [B])."""
+    fused = _use_fused_head(cfg)
+
+    def beam_from_feats(obj, mot, max_steps: int):
+        state, pre = model.decoder_init_beam_state(obj, mot)
+        B = obj.shape[0]
+        # the batch-axis invariants expanded to [B*beam] once, not per step
+        pre_x = expand_pre_to_beams(pre, beam)
+
+        if fused:
+            wv, bv = model.decoder_vocab_head()
+
+            def step_fn(tokens, st):
+                # the first step runs un-expanded on [B]
+                p = pre if tokens.shape[0] == B else pre_x
+                hid, new_st, alpha = model.decoder_beam_step_hidden(tokens, st, p)
+                vals, ids = vocab_head_topk(hid, wv, bv, beam, normalize=True)
+                return vals, ids, new_st, alpha
+
+        else:
+
+            def step_fn(tokens, st):
+                p = pre if tokens.shape[0] == B else pre_x
+                return model.decoder_beam_step(tokens, st, p)
+
+        start = torch.full((B,), START_ID, dtype=torch.int64, device=obj.device)
+        return beam_search(
+            start,
+            state,
+            step_fn,
+            end_id=END_ID,
+            max_steps=max_steps,
+            beam_size=beam,
+            normalize=True,  # beam_step returns raw logits
+            sparse_step=fused,
+            # exact for logits in (-88, 80), which this model's tanh(LN) @ W
+            # head guarantees; the fused head computes the exact lse itself
+            fast_lse=cfg.decode_fast_lse and cfg.decode_quant == "none",
+            approx_topk_recall=cfg.decode_approx_topk,
+            return_finished=True,
+        )
+
+    return beam_from_feats
