@@ -8,13 +8,18 @@ kernels from `dlsg_tpu_torch/csrc/` into `build/dlsg_tpu_torch/`, and prints
 one JSON line per phase:
 
 1. device: the card's name, count and nvidia-smi power limit;
-2. build: seconds to build every kernel (one nvcc per source, in parallel);
+2. build: seconds to build every kernel (one nvcc per source, in parallel),
+   ptxas's registers per kernel, and the tensor-core (HMMA) instructions
+   `cuobjdump` finds in each library;
 3. kernel checks: each kernel against its plain PyTorch version at the
-   shapes the serving path gives it (MSR-VTT widths, batch 128, beam 5);
+   shapes the serving path gives it (MSR-VTT widths, batch 128, beam 5); the
+   vocab head once per tile form, bf16 w (tensor cores, the serving path)
+   and fp32 w (SIMT);
 4. serving: a Captioner at MSR-VTT widths (bf16 compute, both kernel
    switches on, 10 000-word vocabulary, seeded random weights) warms every
    bucket and answers beam-5 requests of 3, 50 and 128 clips and one greedy
-   request, with each kernel's launch count read over that run; then the
+   request, with each kernel's launch count (the vocab head's per tile
+   form too) read over that run; then the
    decode time of a 128-clip batch already on the card, and the share of
    tokens that agree with the same decode through the plain versions. It
    must be >= 99% at fp32 compute, and at bf16 with the vocab head swapped
@@ -31,6 +36,7 @@ Any failure raises, and the script exits nonzero without the last line.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -49,7 +55,9 @@ from dlsg_tpu_torch.evaluation.decode import make_decode_fn  # noqa: E402
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB  # noqa: E402
-from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk, vocab_head_topk_plain  # noqa: E402
+from dlsg_tpu_torch.kernels.vocab_head import ROUTE_LAUNCHES  # noqa: E402
+from dlsg_tpu_torch.kernels.vocab_head import vocab_head_plan, vocab_head_topk  # noqa: E402
+from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk_plain  # noqa: E402
 from dlsg_tpu_torch.models.generator import CapGnnModel  # noqa: E402
 from dlsg_tpu_torch.ops import lstm as lstm_mod  # noqa: E402
 from dlsg_tpu_torch.ops.linear import matmul_f32  # noqa: E402
@@ -144,16 +152,29 @@ def phase_device() -> dict:
     return info
 
 
+def sass_mma_count(path) -> int:
+    """Tensor-core instructions (HMMA) in a built library's machine code."""
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    out = subprocess.run(
+        [str(Path(cuda_home) / "bin" / "cuobjdump"), "-sass", str(path)],
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    return sum("HMMA" in ln for ln in out.stdout.splitlines())
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     kernels.build_all()
     seconds = time.perf_counter() - t0
     ptxas = {
         lib.name: [ln.strip() for ln in lib.build_log.splitlines()
-                   if "registers" in ln or "spill" in ln]
+                   if "entry function" in ln or "registers" in ln or "spill" in ln]
         for lib in kernels.LIBRARIES
     }
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    mma = {lib.name: sass_mma_count(lib.path()) for lib in kernels.LIBRARIES}
+    if not all(mma.values()):
+        raise AssertionError(f"a kernel library has no tensor-core instruction: {mma}")
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "sass_hmma": mma})
 
 
 def check_lstm_scan(cfg: DLSGConfig) -> dict:
@@ -171,13 +192,18 @@ def check_lstm_scan(cfg: DLSGConfig) -> dict:
         err = max(err, float((got - want).abs().max()))
     if not err <= KERNEL_TOL:
         raise AssertionError(f"lstm_scan differs from its plain version: {err} > {KERNEL_TOL}")
-    ops = 2.0 * B * H * 4 * H * (T - 1)  # step 0 multiplies h0 = 0: no product
+    # step 0 multiplies h0 = 0: no product. The kernel's product is fp32-exact
+    # as three bf16 tensor-core passes (h split into hi + mid + lo), so the
+    # least time for the same work is 3x the operations at the bf16 rate.
+    ops = 3 * 2.0 * B * H * 4 * H * (T - 1)
     nbytes = xw.numel() * 4 + H * 4 * H * 2 + B * T * H * 4
-    bms, by = bound_ms(ops, PEAK_FP32, nbytes)
+    bms, by = bound_ms(ops, PEAK_BF16, nbytes)
     return {
         "name": "lstm_scan", "route": "cuda", "source": "dlsg_tpu_torch/csrc/lstm_scan.cu",
         "replaces": "dlsg_tpu/ops/pallas/lstm_scan.py:98",
         "shapes": f"xw [{B},{T},{4 * H}] fp32, w_hh [{H},{4 * H}] -> bf16, one direction",
+        "design": "one cooperative launch per direction, W_hh in shared memory, "
+                  "3-term bf16 split of h on mma.sync",
         "max_abs_err": err, "tolerance": KERNEL_TOL,
         "ms": time_ms(lambda: lstm_scan(xw, w_hh)),
         "plain_ms": time_ms(lambda: lstm_scan_plain(xw, w_hh)),
@@ -185,42 +211,44 @@ def check_lstm_scan(cfg: DLSGConfig) -> dict:
     }
 
 
-def check_vocab_head(cfg: DLSGConfig) -> dict:
+def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
     """K1 at the beam step's shapes: G=640 (128 x beam 5), H=1536,
-    V=10000, k=5, bf16 w, against vocab_head_topk_plain."""
+    V=10000, k=5, against vocab_head_topk_plain. bf16 w takes the
+    tensor-core tiles (the serving path), fp32 w the SIMT tiles."""
     G, H, k = BATCH * BEAM, cfg.decode_hidden_size, BEAM
+    route = vocab_head_plan(G, VOCAB, w_dtype).route
     g = torch.Generator().manual_seed(SEED + 1)
     h = torch.tanh(torch.randn(G, H, generator=g)).to(DEVICE)  # like tanh(LN(l_h))
     std = (2.0 / (H + VOCAB)) ** 0.5  # xavier-normal, as word_restore
-    w = (torch.randn(H, VOCAB, generator=g) * std).to(torch.bfloat16).to(DEVICE)
+    w = (torch.randn(H, VOCAB, generator=g) * std).to(w_dtype).to(DEVICE)
     b = (torch.randn(VOCAB, generator=g) * 0.01).to(DEVICE)
     vals, ids = vocab_head_topk(h, w, b, k)
     torch.cuda.synchronize()
     pv, pi = vocab_head_topk_plain(h, w, b, k)
     err = float((vals - pv).abs().max())
-    logits = h.to(torch.bfloat16).float() @ w.float() + b
+    logits = h.to(w_dtype).float() @ w.float() + b
     differ = ids != pi
     gap = (logits.gather(1, ids) - logits.gather(1, pi)).abs()
     near_tie_only = bool((gap[differ] <= KERNEL_TOL).all())
     if not (err <= KERNEL_TOL and near_tie_only):
         raise AssertionError(
-            f"vocab_head_topk differs from its plain version: vals {err}, "
+            f"vocab_head_topk ({route}) differs from its plain version: vals {err}, "
             f"{int(differ.sum())} ids differ, near-ties only: {near_tie_only}"
         )
 
     def library():
-        hb = h.to(torch.bfloat16)
-        lg = matmul_f32(hb, w) + b  # torch.mm(out_dtype=float32) on the card
+        lg = matmul_f32(h.to(w_dtype), w) + b  # bf16: torch.mm(out_dtype=float32)
         return torch.topk(lg, k), torch.logsumexp(lg, dim=-1)
 
     ops = 2.0 * G * H * VOCAB
-    nbytes = h.numel() * 4 + w.numel() * 2 + b.numel() * 4 + G * k * (4 + 8)
-    bms, by = bound_ms(ops, PEAK_BF16, nbytes)
+    nbytes = h.numel() * 4 + w.numel() * w.element_size() + b.numel() * 4 + G * k * (4 + 8)
+    bms, by = bound_ms(ops, PEAK_BF16 if w_dtype == torch.bfloat16 else PEAK_FP32, nbytes)
+    w_name = "bf16" if w_dtype == torch.bfloat16 else "fp32"
     return {
-        "name": "vocab_head_topk", "route": "cuda",
+        "name": f"vocab_head_topk[{route}]", "route": "cuda",
         "source": "dlsg_tpu_torch/csrc/vocab_head.cu",
         "replaces": "dlsg_tpu/ops/pallas/vocab_head.py:117",
-        "shapes": f"h [{G},{H}] fp32, w [{H},{VOCAB}] bf16, b [{VOCAB}], k={k}",
+        "shapes": f"h [{G},{H}] fp32, w [{H},{VOCAB}] {w_name}, b [{VOCAB}], k={k}",
         "max_abs_err": err, "ids_differ": int(differ.sum()), "tolerance": KERNEL_TOL,
         "ms": time_ms(lambda: vocab_head_topk(h, w, b, k)),
         "plain_ms": time_ms(lambda: vocab_head_topk_plain(h, w, b, k)),
@@ -295,6 +323,8 @@ def phase_serving(cfg: DLSGConfig) -> dict:
     # ---- the main path, with every kernel's launch count read over it ----
     for lib in kernels.LIBRARIES:
         lib.launches = 0
+    for route in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[route] = 0
     t0 = time.perf_counter()
     n_buckets = captioner.warmup()
     warmup_s = time.perf_counter() - t0
@@ -302,6 +332,7 @@ def phase_serving(cfg: DLSGConfig) -> dict:
     greedy = captioner.caption(*reqs[0], greedy=True)
     torch.cuda.synchronize()
     launches = {lib.name: lib.launches for lib in kernels.LIBRARIES}
+    launches.update({f"vocab_head[{r}]": n for r, n in ROUTE_LAUNCHES.items()})
 
     for (fr, _), out in zip(reqs, answers):
         if len(out) != fr.shape[0] or not all(isinstance(s, str) for s in out):
@@ -316,6 +347,8 @@ def phase_serving(cfg: DLSGConfig) -> dict:
         raise AssertionError(
             f"vocab_head launched {launches['vocab_head']} times for {beam_decodes} beam decodes"
         )
+    if launches["vocab_head[tensor_cores]"] != launches["vocab_head"]:
+        raise AssertionError(f"bf16 serving did not take the tensor-core tiles only: {launches}")
 
     # ---- timing: a 128-clip batch already on the card ----
     decode = make_decode_fn(captioner.model, cfg, beam_size=BEAM, device=DEVICE)
@@ -343,7 +376,10 @@ def phase_serving(cfg: DLSGConfig) -> dict:
     model32 = CapGnnModel(cfg32, VOCAB, device=DEVICE)
     model32.load_state_dict(captioner.model.state_dict())
     decode32 = make_decode_fn(model32, cfg32, beam_size=BEAM, device=DEVICE)
-    agree_fp32 = agreement(decode32(fr128, rg128), decode_plain(decode32, fr128, rg128))
+    simt0 = ROUTE_LAUNCHES["simt"]
+    ids32 = decode32(fr128, rg128)
+    simt_fp32_decode = ROUTE_LAUNCHES["simt"] - simt0  # fp32 w: the SIMT tiles
+    agree_fp32 = agreement(ids32, decode_plain(decode32, fr128, rg128))
     if agree_fp32 < TOKEN_AGREEMENT_MIN:
         raise AssertionError(f"fp32 token agreement with the plain versions {agree_fp32} < 0.99")
     # bf16 compute (the serving config). The vocab head alone swapped for its
@@ -374,6 +410,7 @@ def phase_serving(cfg: DLSGConfig) -> dict:
         "phase": "serving", "config": "msr-vtt, bf16, use_pallas_lstm, fused vocab head",
         "vocab": VOCAB, "beam": BEAM, "buckets": captioner.bucket_sizes(),
         "warmup_s": warmup_s, "requests": list(REQUESTS), "launches": launches,
+        "vocab_head_simt_launches_fp32_decode": simt_fp32_decode,
         "decode_ms_b128": decode_ms, "captions_per_s": BATCH / (decode_ms / 1e3),
         "encode_ms_b128": encode_ms, "beam_steps_b128": steps, "caption_ms_b128_from_host": caption_ms,
         "token_agreement_vs_plain_fp32": agree_fp32,
@@ -394,10 +431,16 @@ def main() -> None:
         DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
                    use_pallas_lstm=True, use_fused_vocab_head="on")
     )
-    checks = [(LSTM_LIB, check_lstm_scan(cfg)), (VOCAB_LIB, check_vocab_head(cfg))]
+    # (key of the serving phase's launch counts, kernels line entry); the
+    # fp32-w SIMT tiles are off the bf16 serving path and count 0 there
+    checks = [
+        ("lstm_scan", check_lstm_scan(cfg)),
+        ("vocab_head[tensor_cores]", check_vocab_head(cfg, torch.bfloat16)),
+        ("vocab_head[simt]", check_vocab_head(cfg, torch.float32)),
+    ]
     launches = phase_serving(cfg)["launches"]
-    for lib, entry in checks:
-        entry["launches"] = launches[lib.name]
+    for key, entry in checks:
+        entry["launches"] = launches[key]
     emit({"kernels": [entry for _, entry in checks]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})

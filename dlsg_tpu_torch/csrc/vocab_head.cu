@@ -7,51 +7,69 @@
 //
 // What bounds it on the card: at the beam step's shapes (G=640 rows, H=1536,
 // V=10000) the function is 19.7 GFLOP against 30.7 MB of bf16 weights, so it
-// is bound by operations: ~20 us at the bf16 tensor-core rate. This first
-// kernel multiplies with fp32 FMAs on the CUDA cores (67 TFLOP/s peak, so
-// ~0.3 ms at best) and is bound by that rate; a tensor-core (wgmma) form is
-// later work.
+// is bound by operations: ~20 us at the bf16 tensor-core rate.
 //
 // Design: the TPU kernel walked the V tiles in order and kept a running top-k
 // and (max, sumexp) in scratch. Blocks on the card run in no order, so the
 // walk becomes two launches:
-//   1. tile_topk_kernel, grid (V tiles x row tiles): a block computes a
-//      64 x 128 fp32 logits tile (4 x 8 per thread, operands staged through
-//      shared memory in k-slices of 16), adds the bias, masks columns >= V
+//   1. a tile kernel, one block per (row tile, 128-column vocab tile): the
+//      block computes its fp32 logits tile, adds the bias, skips columns >= V
 //      itself (no padded copy of w), and writes the tile's top-k (value, id)
-//      and the row's (max, sum exp(x - max)) over the tile to scratch;
+//      and the row's (max, sum exp(x - max)) over the tile to scratch. In
+//      that epilogue 2 (tensor-core form) or 4 (SIMT form) threads share a
+//      row: each keeps the 8 best of its columns in registers by insertion,
+//      and the lists merge over shuffles;
 //   2. merge_kernel, one warp per row: picks the k best of the per-tile lists
 //      and combines the lse as M + log(sum_j s_j exp(m_j - M)).
-// h is rounded to w's dtype before the product, as the TPU kernel casts it.
+// The tile kernel has two forms, chosen by the dtype of w alone:
+//   - bf16 w (the serving path): tc_tile_kernel, a 128 x 128 tile on the
+//     tensor cores. h arrives as bf16 (rounded once by the wrapper, as the TPU
+//     kernel casts h to w's dtype). [128 x 32] h tiles and [32 x 128] w tiles
+//     stream through a 4-stage ring in shared memory by 16-byte cp.async
+//     (ordinary loads where a row is not 16-byte aligned); 8 warps, each a
+//     64 x 32 sub-tile, multiply with mma.sync m16n8k16 bf16 -> fp32, fed by
+//     ldmatrix (ldmatrix.trans for w, which is [H, V] row-major). Rows >= G
+//     and k >= H are zero-filled in shared memory.
+//   - fp32 w: simt_tile_kernel, a 64 x 128 tile of fp32 FMAs on the CUDA
+//     cores (a TF32 product would break the fp32 contract).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;        // rows per block
-constexpr int BN = 128;       // vocab columns per block (one tile)
-constexpr int BK = 16;        // k-slice staged in shared memory
-constexpr int THREADS = 256;  // 16 x 16: rows ty + 16 i, columns tx + 16 j
-constexpr int TM = 4;
-constexpr int TN = 8;
+constexpr int BN = 128;       // vocab columns per block (one tile), both forms
+constexpr int THREADS = 256;  // both tile kernels
 constexpr int KMAX = 8;
 constexpr long long NO_ID = 0x7fffffffLL;  // id of an empty slot
-constexpr int SMEM_FLOATS = BM * (BN + 1);  // logits tile; >= BK * (BM + BN)
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float load_w(const float* w, size_t i) { return w[i]; }
-__device__ __forceinline__ float load_w(const __nv_bfloat16* w, size_t i) {
-  return __bfloat162float(w[i]);
-}
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+// fp32 SIMT form
+constexpr int BM = 64;  // rows per block
+constexpr int BK = 16;  // k-slice staged in shared memory
+constexpr int TM = 4;   // 16 x 16 threads: rows ty + 16 i, columns tx + 16 j
+constexpr int TN = 8;
+constexpr int SMEM_FLOATS = BM * (BN + THREADS / BM);  // logits tile; >= BK * (BM + BN)
+
+// bf16 tensor-core form
+constexpr int TC_BM = 128;
+constexpr int TC_BK = 32;
+constexpr int TC_STAGES = 4;
+// bf16 per row of the h and w tiles in shared memory, padded by 8 so that
+// ldmatrix's 8 row addresses fall on distinct banks (80 B and 272 B rows)
+constexpr int A_STRIDE = TC_BK + 8;
+constexpr int B_STRIDE = BN + 8;
+constexpr int A_STAGE = TC_BM * A_STRIDE;
+constexpr int B_STAGE = TC_BK * B_STRIDE;
+constexpr int TC_RING_BYTES = TC_STAGES * (A_STAGE + B_STAGE) * 2;
+constexpr int TC_TILE_BYTES = TC_BM * (BN + THREADS / TC_BM) * 4;
+constexpr int TC_SMEM_BYTES = TC_RING_BYTES > TC_TILE_BYTES ? TC_RING_BYTES : TC_TILE_BYTES;
 
 // (v, i) ranks before (bv, bi): larger value first, then lower id
-__device__ __forceinline__ bool better(float v, long long i, float bv, long long bi) {
+template <typename I>
+__device__ __forceinline__ bool better(float v, I i, float bv, I bi) {
   return v > bv || (v == bv && i < bi);
 }
 
@@ -80,9 +98,89 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename WT>
+// insert (v, i) into the sorted list (tv, ti) of the KMAX best, dropping the last
+__device__ __forceinline__ void insert(float (&tv)[KMAX], int (&ti)[KMAX], float v, int i) {
+  if (!better(v, i, tv[KMAX - 1], ti[KMAX - 1])) return;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j)
+    if (better(v, i, tv[j], ti[j])) {  // (v, i) takes slot j and carries the old entry down
+      const float sv = tv[j];
+      const int si = ti[j];
+      tv[j] = v;
+      ti[j] = i;
+      v = sv;
+      i = si;
+    }
+}
+
+// Row stride of the logits tile C [ROWS][stride] in shared memory: P = THREADS
+// / ROWS neighbouring threads share a row and read columns P j + q, so a
+// stride of BN + P puts the 32 lanes of a warp on 32 banks.
+template <int ROWS>
+__host__ __device__ constexpr int tile_stride() { return BN + THREADS / ROWS; }
+
+// The epilogue both tile kernels share. C holds the logits tile with the bias
+// added. P threads per row each keep the KMAX best of their columns (>= V
+// skipped) in registers with the row's (max, sumexp) over them; the P lists
+// and sums merge over shuffles, and the row's first thread writes the tile's
+// top-k and (max, sumexp) to scratch.
+template <int ROWS>
+__device__ void tile_epilogue(const float* C, int row0, int col0, int tile, int G, int V,
+                              int k, int n_tiles, float* __restrict__ part_v,
+                              long long* __restrict__ part_i, float* __restrict__ part_m,
+                              float* __restrict__ part_s) {
+  constexpr int P = THREADS / ROWS, S = tile_stride<ROWS>();
+  const int m = threadIdx.x / P, q = threadIdx.x % P;
+  const float* row = C + m * S;
+  const int n_cols = min(BN, V - col0);  // columns of this tile below V
+  float tv[KMAX];
+  int ti[KMAX];
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    tv[j] = -INFINITY;
+    ti[j] = (int)NO_ID;
+  }
+  float mx = -INFINITY;
+  for (int n = q; n < n_cols; n += P) {
+    const float v = row[n];
+    mx = fmaxf(mx, v);
+    insert(tv, ti, v, col0 + n);
+  }
+  float s = 0.f;
+  for (int n = q; n < n_cols; n += P) s += expf(row[n] - mx);
+#pragma unroll
+  for (int off = 1; off < P; off <<= 1) {  // the P threads of a row are neighbouring lanes
+    const float om = __shfl_xor_sync(FULL, mx, off), os = __shfl_xor_sync(FULL, s, off);
+    const float M = fmaxf(mx, om);
+    s = (s > 0.f ? s * expf(mx - M) : 0.f) + (os > 0.f ? os * expf(om - M) : 0.f);
+    mx = M;
+    float pv[KMAX];
+    int pi[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      pv[j] = __shfl_xor_sync(FULL, tv[j], off);
+      pi[j] = __shfl_xor_sync(FULL, ti[j], off);
+    }
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) insert(tv, ti, pv[j], pi[j]);
+  }
+  const int r = row0 + m;
+  if (q != 0 || r >= G) return;
+  const size_t slot = (size_t)r * n_tiles + tile;
+  part_m[slot] = mx;
+  part_s[slot] = s;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j)
+    if (j < k) {
+      part_v[slot * k + j] = tv[j];
+      part_i[slot * k + j] = ti[j];
+    }
+}
+
+// ------------------------------------------------------------ fp32 w: SIMT
+
 __global__ void __launch_bounds__(THREADS)
-tile_topk_kernel(const float* __restrict__ h, const WT* __restrict__ w,
+simt_tile_kernel(const float* __restrict__ h, const float* __restrict__ w,
                  const float* __restrict__ b, float* __restrict__ part_v,
                  long long* __restrict__ part_i, float* __restrict__ part_m,
                  float* __restrict__ part_s, int G, int H, int V, int k, int n_tiles) {
@@ -105,13 +203,12 @@ tile_topk_kernel(const float* __restrict__ h, const WT* __restrict__ w,
     for (int e = tid; e < BM * BK; e += THREADS) {
       const int m = e / BK, kk = e % BK;
       const int r = row0 + m, c = k0 + kk;
-      const float x = (r < G && c < H) ? h[(size_t)r * H + c] : 0.f;
-      As[kk * BM + m] = round_to(x, w);
+      As[kk * BM + m] = (r < G && c < H) ? h[(size_t)r * H + c] : 0.f;
     }
     for (int e = tid; e < BK * BN; e += THREADS) {
       const int kk = e / BN, n = e % BN;
       const int r = k0 + kk, c = col0 + n;
-      Bs[kk * BN + n] = (r < H && c < V) ? load_w(w, (size_t)r * V + c) : 0.f;
+      Bs[kk * BN + n] = (r < H && c < V) ? w[(size_t)r * V + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -129,65 +226,203 @@ tile_topk_kernel(const float* __restrict__ h, const WT* __restrict__ w,
     __syncthreads();
   }
 
-  // logits tile (+ bias) into shared memory; columns >= V are -inf
-  float* C = smem;  // [BM][BN + 1]
+  float* C = smem;  // [BM][tile_stride<BM>()]; columns >= V are never read
+  constexpr int CS = tile_stride<BM>();
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int m = ty + 16 * i, n = tx + 16 * j, c = col0 + n;
-      C[m * (BN + 1) + n] = (c < V) ? acc[i][j] + b[c] : -INFINITY;
+      C[m * CS + n] = acc[i][j] + (c < V ? b[c] : 0.f);
     }
   __syncthreads();
+  tile_epilogue<BM>(C, row0, col0, tile, G, V, k, n_tiles, part_v, part_i, part_m, part_s);
+}
 
-  // one warp per row: (max, sumexp) and the tile's top-k
-  const int warp = tid / 32, lane = tid % 32;
-  for (int m = warp; m < BM; m += THREADS / 32) {
-    const int r = row0 + m;
-    if (r >= G) break;  // uniform over the warp
-    float v[BN / 32];
-    long long id[BN / 32];
-    float mx = -INFINITY;
+// ------------------------------------------------ bf16 w: tensor cores
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with `pred` false the destination is zero-filled
+// and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 8 bf16 at src[0..n) (n <= 8, the rest zero) into 16 bytes of shared memory
+// with ordinary loads: the path for rows that are not 16-byte aligned
+__device__ __forceinline__ void copy8_sync(__nv_bfloat16* dst, const __nv_bfloat16* src, int n) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  unsigned short v[8];
 #pragma unroll
-    for (int q = 0; q < BN / 32; ++q) {
-      const int n = lane + 32 * q, c = col0 + n;
-      v[q] = C[m * (BN + 1) + n];
-      id[q] = (c < V) ? (long long)c : NO_ID;
-      mx = fmaxf(mx, v[q]);
-    }
-    mx = warp_max(mx);
-    float s = 0.f;
+  for (int q = 0; q < 8; ++q) v[q] = q < n ? __ldg(s + q) : (unsigned short)0;
+  uint4 u;
+  u.x = v[0] | ((uint32_t)v[1] << 16);
+  u.y = v[2] | ((uint32_t)v[3] << 16);
+  u.z = v[4] | ((uint32_t)v[5] << 16);
+  u.w = v[6] | ((uint32_t)v[7] << 16);
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16 bf16, row-major) * b (16x8 bf16, k-major), fp32 accumulate.
+// Not volatile: independent products may be scheduled around each other.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage k-tile kt of h [G, H] and w [H, V] into ring slot `slot`: 512
+// 16-byte chunks each, two per thread. With `aligned` (H and V multiples of
+// 8, 16-byte base pointers) a chunk is wholly in or out of bounds, and
+// cp.async zero-fills the ones out.
+__device__ __forceinline__ void tc_load_stage(__nv_bfloat16* As, __nv_bfloat16* Bs,
+                                              const __nv_bfloat16* __restrict__ h,
+                                              const __nv_bfloat16* __restrict__ w, int kt,
+                                              int row0, int col0, int G, int H, int V,
+                                              bool aligned) {
+  const int k0 = kt * TC_BK;
 #pragma unroll
-    for (int q = 0; q < BN / 32; ++q)
-      if (id[q] != NO_ID) s += expf(v[q] - mx);
-    s = warp_sum(s);
-    const size_t slot = (size_t)r * n_tiles + tile;
-    if (lane == 0) {
-      part_m[slot] = mx;
-      part_s[slot] = s;
-    }
-    // pick t takes the best candidate ranked after pick t-1
-    float pv = INFINITY;
-    long long pi = -1;
-    for (int t = 0; t < k; ++t) {
-      float bv = -INFINITY;
-      long long bi = NO_ID;
+  for (int q = 0; q < (TC_BM * TC_BK / 8) / THREADS; ++q) {
+    const int e = threadIdx.x + q * THREADS;
+    const int m = e / (TC_BK / 8), kc = (e % (TC_BK / 8)) * 8;
+    const int r = row0 + m, c = k0 + kc;
+    __nv_bfloat16* dst = As + m * A_STRIDE + kc;
+    const bool in = r < G && c < H;
+    const __nv_bfloat16* src = in ? h + (size_t)r * H + c : h;
+    if (aligned)
+      cp_async16(dst, src, in);
+    else
+      copy8_sync(dst, src, in ? min(8, H - c) : 0);
+  }
 #pragma unroll
-      for (int q = 0; q < BN / 32; ++q)
-        if (better(pv, pi, v[q], id[q]) && better(v[q], id[q], bv, bi)) {
-          bv = v[q];
-          bi = id[q];
-        }
-      warp_best(bv, bi);
-      if (lane == 0) {
-        part_v[slot * k + t] = bv;
-        part_i[slot * k + t] = bi;
-      }
-      pv = bv;
-      pi = bi;
-    }
+  for (int q = 0; q < (TC_BK * BN / 8) / THREADS; ++q) {
+    const int e = threadIdx.x + q * THREADS;
+    const int kk = e / (BN / 8), nc = (e % (BN / 8)) * 8;
+    const int r = k0 + kk, c = col0 + nc;
+    __nv_bfloat16* dst = Bs + kk * B_STRIDE + nc;
+    const bool in = r < H && c < V;
+    const __nv_bfloat16* src = in ? w + (size_t)r * V + c : w;
+    if (aligned)
+      cp_async16(dst, src, in);
+    else
+      copy8_sync(dst, src, in ? min(8, V - c) : 0);
   }
 }
+
+__global__ void __launch_bounds__(THREADS)
+tc_tile_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ w,
+               const float* __restrict__ b, float* __restrict__ part_v,
+               long long* __restrict__ part_i, float* __restrict__ part_m,
+               float* __restrict__ part_s, int G, int H, int V, int k, int n_tiles,
+               int aligned) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  // the row tile is the fast grid index: the blocks that share a w tile run together
+  const int row0 = blockIdx.x * TC_BM;
+  const int tile = blockIdx.y;
+  const int col0 = tile * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;  // the warp's 64 x 32 sub-tile
+  const int KT = (H + TC_BK - 1) / TC_BK;
+
+  float acc[4][4][4];  // [m16 tile][n8 tile][fragment]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  auto As = [&](int s) { return ring + s * (A_STAGE + B_STAGE); };
+  auto Bs = [&](int s) { return ring + s * (A_STAGE + B_STAGE) + A_STAGE; };
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < KT) tc_load_stage(As(s), Bs(s), h, w, s, row0, col0, G, H, V, aligned);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<TC_STAGES - 2>();  // k-tile kt has landed
+    __syncthreads();                 // ... for every thread; slot (kt - 1) is free
+    const int next = kt + TC_STAGES - 1;
+    if (next < KT)
+      tc_load_stage(As(next % TC_STAGES), Bs(next % TC_STAGES), h, w, next, row0, col0, G, H,
+                    V, aligned);
+    cp_async_commit();
+    const __nv_bfloat16* a_s = As(kt % TC_STAGES);
+    const __nv_bfloat16* b_s = Bs(kt % TC_STAGES);
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 16) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(af[i], a_s + (wm + i * 16 + lane % 16) * A_STRIDE + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, b_s + (kk + lane % 16) * B_STRIDE + wn + jj * 16 + (lane / 16) * 8);
+        bf[2 * jj][0] = r[0];
+        bf[2 * jj][1] = r[1];
+        bf[2 * jj + 1][0] = r[2];
+        bf[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is reused as the logits tile
+
+  // the logits tile (+ bias), [TC_BM][tile_stride<TC_BM>()]; columns >= V are never read
+  float* C = reinterpret_cast<float*>(tc_smem);
+  constexpr int CS = tile_stride<TC_BM>();
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = wn + j * 8 + 2 * t, c = col0 + n;
+    const float b0 = c < V ? b[c] : 0.f, b1 = c + 1 < V ? b[c + 1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = wm + i * 16 + g;
+      *reinterpret_cast<float2*>(C + m * CS + n) =
+          make_float2(acc[i][j][0] + b0, acc[i][j][1] + b1);
+      *reinterpret_cast<float2*>(C + (m + 8) * CS + n) =
+          make_float2(acc[i][j][2] + b0, acc[i][j][3] + b1);
+    }
+  }
+  __syncthreads();
+  tile_epilogue<TC_BM>(C, row0, col0, tile, G, V, k, n_tiles, part_v, part_i, part_m, part_s);
+}
+
+// ------------------------------------------------------------- merge
 
 __global__ void __launch_bounds__(256)
 merge_kernel(const float* __restrict__ part_v, const long long* __restrict__ part_i,
@@ -239,31 +474,45 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// h [G, H] fp32; w [H, V] bf16 (w_bf16 = 1) or fp32; b [V] fp32; scratch
-// part_v/part_i [G, n_tiles, k], part_m/part_s [G, n_tiles] with
-// n_tiles = ceil(V / 128); outputs vals [G, k] fp32, ids [G, k] int64.
-// Returns cudaGetLastError() after the launches.
+// Dynamic shared memory of one tensor-core tile block, in bytes (the
+// wrapper's tile plan states the same number).
+extern "C" int vocab_head_tc_smem_bytes() { return TC_SMEM_BYTES; }
+
+// w [H, V] bf16 (w_bf16 = 1) with h [G, H] bf16, or w and h fp32; b [V]
+// fp32; scratch part_v/part_i [G, n_tiles, k], part_m/part_s [G, n_tiles]
+// with n_tiles = ceil(V / 128); outputs vals [G, k] fp32, ids [G, k] int64.
+// Returns the first nonzero cudaGetLastError() of the launches.
 extern "C" int vocab_head_topk_launch(const void* h, const void* w, int w_bf16,
                                       const void* b, void* part_v, void* part_i,
                                       void* part_m, void* part_s, void* vals, void* ids,
                                       int G, int H, int V, int k, int normalize,
                                       void* stream) {
-  if (k < 1 || k > KMAX || G < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > KMAX || G < 1 || V < 1 || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (V + BN - 1) / BN;
-  const dim3 grid(n_tiles, (G + BM - 1) / BM);
-  const float* hp = static_cast<const float*>(h);
   const float* bp = static_cast<const float*>(b);
   float* pv = static_cast<float*>(part_v);
   long long* pi = static_cast<long long*>(part_i);
   float* pm = static_cast<float*>(part_m);
   float* ps = static_cast<float*>(part_s);
   if (w_bf16) {
-    tile_topk_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        hp, static_cast<const __nv_bfloat16*>(w), bp, pv, pi, pm, ps, G, H, V, k, n_tiles);
+    // per device, so set on every launch (a host-side call, no launch)
+    const cudaError_t e = cudaFuncSetAttribute(
+        tc_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int aligned = H % 8 == 0 && V % 8 == 0 &&
+                        reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const dim3 grid((G + TC_BM - 1) / TC_BM, n_tiles);
+    tc_tile_kernel<<<grid, THREADS, TC_SMEM_BYTES, st>>>(
+        static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(w), bp, pv, pi,
+        pm, ps, G, H, V, k, n_tiles, aligned);
   } else {
-    tile_topk_kernel<float><<<grid, THREADS, 0, st>>>(
-        hp, static_cast<const float*>(w), bp, pv, pi, pm, ps, G, H, V, k, n_tiles);
+    const dim3 grid(n_tiles, (G + BM - 1) / BM);
+    simt_tile_kernel<<<grid, THREADS, 0, st>>>(static_cast<const float*>(h),
+                                               static_cast<const float*>(w), bp, pv, pi, pm, ps,
+                                               G, H, V, k, n_tiles);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

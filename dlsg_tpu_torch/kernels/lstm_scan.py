@@ -3,24 +3,86 @@
 Counterpart of `dlsg_tpu/ops/pallas/lstm_scan.py::lstm_scan_pallas`: one LSTM
 direction with h0 = c0 = 0, h kept in fp32, W_hh rounded to bf16, fp32
 accumulation, gates in (i, f, g, o) order. Forward only.
+
+On the card one cooperative launch runs the whole direction: each block keeps
+its slice of W_hh in shared memory for all steps, and a grid barrier
+separates the steps, so every block must be resident at once.
+`lstm_scan_plan` says how a shape is cut into blocks and whether it fits.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from dlsg_tpu_torch.kernels._build import ERROR_STRING, CudaLibrary
 
+N_SM = 132  # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232_448  # dynamic shared memory one block may opt in to on Hopper (227 KB)
+ROWS = 128  # batch rows per row tile; a larger batch loops over row tiles
+# (units per block, chunk_k, stages of the h-chunk ring), in the order tried
+SHAPES = ((8, 64, 4), (8, 64, 2), (16, 16, 2))
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(
     "lstm_scan",
     {
-        "lstm_scan_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+        "lstm_scan_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        "lstm_scan_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
         **ERROR_STRING,
     },
 )
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """How one direction is launched: `blocks` blocks of 256 threads, each
+    owning `units` hidden units (all four gate columns), with `smem_bytes` of
+    dynamic shared memory."""
+
+    units: int
+    blocks: int
+    chunk_k: int  # k-width of the h_{t-1} chunks streamed per step
+    stages: int  # chunks in the shared-memory ring
+    smem_bytes: int
+
+
+def _smem_bytes(B: int, H: int, units: int, chunk_k: int, stages: int) -> int:
+    """W_hh slice [ceil16(H), 4 units] bf16 + a ring of `stages` [ROWS,
+    chunk_k + 8] fp32 h chunks + c [ceil(B / ROWS) ROWS, units] fp32 (as
+    `smem_bytes` in the source)."""
+    hp = -(-H // 16) * 16
+    return (hp * 4 * units * 2 + stages * ROWS * (chunk_k + 8) * 4
+            + -(-B // ROWS) * ROWS * units * 4)
+
+
+def max_hidden(B: int, *, n_sm: int = N_SM) -> int:
+    """The largest hidden size `lstm_scan_plan` accepts for batch B."""
+    best = 0
+    for units, chunk_k, stages in SHAPES:
+        rest = SMEM_LIMIT - _smem_bytes(B, 0, units, chunk_k, stages)
+        hp = max(rest, 0) // (4 * units * 2) // 16 * 16
+        best = max(best, min(units * n_sm, hp))
+    return best
+
+
+def lstm_scan_plan(B: int, H: int, *, n_sm: int = N_SM) -> ScanPlan:
+    """The launch of one direction at batch B and hidden size H: the first
+    of SHAPES whose blocks fit on the SMs and in shared memory (8 units a
+    block with a 4-chunk ring at the repo's widths). Raises ValueError when
+    the W_hh slices do not fit the shared memory of `n_sm` blocks."""
+    for units, chunk_k, stages in SHAPES:
+        plan = ScanPlan(units, -(-H // units), chunk_k, stages,
+                        _smem_bytes(B, H, units, chunk_k, stages))
+        if plan.blocks <= n_sm and plan.smem_bytes <= SMEM_LIMIT:
+            return plan
+    raise ValueError(
+        f"lstm_scan: H={H} at B={B} does not fit: W_hh must stay in the shared memory of at "
+        f"most {n_sm} co-resident blocks of {SMEM_LIMIT} bytes; the largest H for this batch "
+        f"is {max_hidden(B, n_sm=n_sm)}"
+    )
 
 
 def lstm_scan_plain(xw: torch.Tensor, w_hh: torch.Tensor, *, reverse: bool = False) -> torch.Tensor:
@@ -48,7 +110,8 @@ def lstm_scan(xw: torch.Tensor, w_hh: torch.Tensor, *, reverse: bool = False) ->
     to left with outputs at their input positions.
 
     A CPU tensor takes `lstm_scan_plain`; a CUDA tensor launches the kernel
-    (T step launches, counted as one in `LIBRARY.launches`)."""
+    (one launch per call) or raises, ValueError for a shape whose W_hh does
+    not fit (`lstm_scan_plan`)."""
     if xw.device.type == "cpu":
         return lstm_scan_plain(xw, w_hh, reverse=reverse)
     if xw.device.type != "cuda":
@@ -66,13 +129,14 @@ def lstm_scan(xw: torch.Tensor, w_hh: torch.Tensor, *, reverse: bool = False) ->
     hs = torch.empty(B, T, H, device=xw.device, dtype=torch.float32)
     if B == 0 or T == 0 or H == 0:
         return hs
+    n_sm = torch.cuda.get_device_properties(xw.device).multi_processor_count
+    plan = lstm_scan_plan(B, H, n_sm=n_sm)
     u = w_hh.to(torch.bfloat16).contiguous()
-    c = torch.empty(B, H, device=xw.device, dtype=torch.float32)
     lib = LIBRARY.load()
     with torch.cuda.device(xw.device):
         err = lib.lstm_scan_launch(
-            xw.data_ptr(), u.data_ptr(), hs.data_ptr(), c.data_ptr(),
-            B, T, H, int(reverse), torch.cuda.current_stream(xw.device).cuda_stream,
+            xw.data_ptr(), u.data_ptr(), hs.data_ptr(), B, T, H, plan.units, plan.stages,
+            int(reverse), torch.cuda.current_stream(xw.device).cuda_stream,
         )
         LIBRARY.launches += 1
     LIBRARY.check(err)

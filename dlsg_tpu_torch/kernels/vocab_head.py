@@ -5,11 +5,16 @@ Counterpart of `dlsg_tpu/ops/pallas/vocab_head.py::vocab_head_topk`:
 fp32 bias; values sorted descending, ties to the lowest id (as `lax.top_k`);
 with `normalize` the exact row logsumexp is subtracted. On the card the
 [G, V] logits never reach device memory.
+
+The dtype of w alone picks the kernel's tile form: bf16 w runs the product on
+the tensor cores (h rounded to bf16 once, here), fp32 w as fp32 FMAs on the
+CUDA cores. `vocab_head_plan` gives each form's tiles, grid and shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -18,7 +23,8 @@ from dlsg_tpu_torch.kernels._build import ERROR_STRING, CudaLibrary
 from dlsg_tpu_torch.ops.topk import top_k
 
 K_MAX = 8  # most candidates per row the kernel keeps
-TILE_V = 128  # vocab columns per block; must match BN in csrc/vocab_head.cu
+TILE_V = 128  # vocab columns per block, both forms; must match BN in csrc/vocab_head.cu
+THREADS = 256  # per tile block, both forms
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(
@@ -28,9 +34,46 @@ LIBRARY = CudaLibrary(
             [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
             ctypes.c_int,
         ),
+        "vocab_head_tc_smem_bytes": ([], ctypes.c_int),
         **ERROR_STRING,
     },
 )
+# launches of each tile form; each also counts in LIBRARY.launches
+ROUTE_LAUNCHES = {"tensor_cores": 0, "simt": 0}
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """One tile form of the kernel: [block_m x block_k] h and [block_k x
+    TILE_V] w tiles through `stages` shared-memory stages, a grid of
+    `grid` blocks of THREADS threads, `smem_bytes` of shared memory each."""
+
+    route: str
+    block_m: int
+    block_k: int
+    stages: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+
+def vocab_head_plan(G: int, V: int, w_dtype: torch.dtype) -> TilePlan:
+    """The tile form for w of `w_dtype` (as the constants of
+    csrc/vocab_head.cu): bf16 -> 128 x 128 tensor-core tiles, a 4-stage ring of
+    [128 x 32] h and [32 x 128] w bf16 tiles, rows padded by 8 bf16 against
+    bank conflicts, reused as the [128 x 130] fp32 logits tile; fp32 -> 64 x
+    128 SIMT tiles with a [64 x 132] fp32 logits tile (rows padded by the
+    THREADS / block_m threads that share a row in the epilogue)."""
+    n_tiles = -(-V // TILE_V)
+    if w_dtype == torch.bfloat16:
+        bm, bk, stages = 128, 32, 4
+        ring = stages * (bm * (bk + 8) + bk * (TILE_V + 8)) * 2
+        return TilePlan("tensor_cores", bm, bk, stages, (-(-G // bm), n_tiles),
+                        max(ring, bm * (TILE_V + THREADS // bm) * 4))
+    if w_dtype == torch.float32:
+        bm = 64
+        return TilePlan("simt", bm, 16, 1, (n_tiles, -(-G // bm)),
+                        bm * (TILE_V + THREADS // bm) * 4)
+    raise ValueError(f"w must be bf16 or fp32, got {w_dtype}")
 
 
 def vocab_head_topk_plain(
@@ -53,7 +96,8 @@ def vocab_head_topk(
     h [G, H] any float dtype (cast to w.dtype for the product), w [H, V] bf16
     or fp32, b [V]; returns (vals [G, k] fp32 descending, ids [G, k] int64).
     A CPU tensor takes `vocab_head_topk_plain`; a CUDA tensor launches the
-    kernel (one tile launch and one merge launch, counted as one)."""
+    kernel (one tile launch and one merge launch, counted as one): with bf16 w
+    the tensor-core tiles, with fp32 w the SIMT tiles."""
     if h.device.type == "cpu":
         return vocab_head_topk_plain(h, w, b, k, normalize=normalize)
     if h.device.type != "cuda":
@@ -66,15 +110,14 @@ def vocab_head_topk(
         raise ValueError(f"shape mismatch: h {tuple(h.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}")
     if not 1 <= k <= min(K_MAX, V):
         raise ValueError(f"k must be in [1, min({K_MAX}, V={V})], got {k}")
-    if w.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"w must be bf16 or fp32, got {w.dtype}")
     if not h.is_floating_point() or not b.is_floating_point():
         raise ValueError("h and b must be float tensors")
     if {h.device, w.device, b.device} != {h.device}:
         raise ValueError("h, w and b must be on one device")
     if not (h.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("h, w and b must be contiguous")
-    h32 = h.float()  # the kernel reads fp32 h and rounds it to w.dtype itself
+    plan = vocab_head_plan(G, V, w.dtype)
+    hk = h.to(w.dtype)  # as the TPU kernel's h.astype(w.dtype); no copy if h is w.dtype
     b32 = b.float()
     dev = h.device
     n_tiles = -(-V // TILE_V)
@@ -89,11 +132,12 @@ def vocab_head_topk(
     lib = LIBRARY.load()
     with torch.cuda.device(dev):
         err = lib.vocab_head_topk_launch(
-            h32.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), b32.data_ptr(),
+            hk.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), b32.data_ptr(),
             part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
             vals.data_ptr(), ids.data_ptr(), G, H, V, k, int(normalize),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         LIBRARY.launches += 1
+        ROUTE_LAUNCHES[plan.route] += 1
     LIBRARY.check(err)
     return vals, ids

@@ -5,7 +5,8 @@ imports none and runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: the kernels sum fp32 products in another order than cuBLAS:
+Tolerances: the kernels sum fp32 products in another order than cuBLAS (the
+LSTM kernel's three bf16 terms of h give the fp32 product up to that order):
 atol 1e-4 on LSTM states and top-k values; vocab ids equal except near-ties
 within 1e-4 of each other."""
 
@@ -16,9 +17,14 @@ import torch
 from dlsg_tpu_torch.config import tiny_test_config
 from dlsg_tpu_torch.evaluation.decode import make_decode_fn
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB
-from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain
+from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain, lstm_scan_plan, max_hidden
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB
-from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk, vocab_head_topk_plain
+from dlsg_tpu_torch.kernels.vocab_head import (
+    ROUTE_LAUNCHES,
+    vocab_head_plan,
+    vocab_head_topk,
+    vocab_head_topk_plain,
+)
 from dlsg_tpu_torch.models.generator import CapGnnModel
 
 pytestmark = pytest.mark.cuda
@@ -38,6 +44,20 @@ def _rand(*shape, seed=0, scale=1.0):
     )
 
 
+def _n_sm(card):
+    return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+def _check_lstm_scan(card, B, T, H, reverse, scale=0.3):
+    xw = _rand(B, T, 4 * H, seed=B + H).to(card)
+    w = _rand(H, 4 * H, seed=H, scale=scale).to(card)
+    before = LSTM_LIB.launches
+    got = lstm_scan(xw, w, reverse=reverse)
+    torch.cuda.synchronize()
+    assert LSTM_LIB.launches == before + 1
+    torch.testing.assert_close(got, lstm_scan_plain(xw, w, reverse=reverse), rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_scan_kernel_matches_plain(card, reverse):
     """Ragged batch and hidden size (37 rows, 40 units: not block multiples)."""
@@ -50,20 +70,64 @@ def test_lstm_scan_kernel_matches_plain(card, reverse):
     torch.testing.assert_close(got, lstm_scan_plain(xw, w, reverse=reverse), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize(
+    "B,T,H",
+    [(128, 4, 1024),  # the encoder Bi-LSTM's widths, a short sequence
+     (130, 3, 36),  # two row tiles; H not a multiple of 8 or 16
+     (640, 2, 1024),  # five row tiles; the 2-chunk ring (c fills shared memory)
+     (5, 4, 21)],  # H odd: h_{t-1} rows are not 16-byte aligned
+)
+def test_lstm_scan_kernel_shapes(card, B, T, H, reverse):
+    _check_lstm_scan(card, B, T, H, reverse, scale=1.0 / H**0.5)
+
+
+def test_lstm_scan_largest_hidden_size(card):
+    """The largest H the plan accepts runs (16 units a block, 227 KB of
+    shared memory); one above it raises ValueError."""
+    H = max_hidden(8, n_sm=_n_sm(card))
+    assert lstm_scan_plan(8, H, n_sm=_n_sm(card)).units == 16
+    _check_lstm_scan(card, 8, 3, H, reverse=False, scale=1.0 / H**0.5)
+    xw = torch.zeros(8, 3, 4 * (H + 1), device=card)
+    before = LSTM_LIB.launches
+    with pytest.raises(ValueError, match="largest H"):
+        lstm_scan(xw, torch.zeros(H + 1, 4 * (H + 1), device=card))
+    assert LSTM_LIB.launches == before
+
+
+def test_plans_state_the_kernels_shared_memory(card):
+    """The Python plans and the compiled sources agree on shared memory."""
+    lstm = LSTM_LIB.load()
+    for B, H in [(128, 1024), (37, 40), (130, 36), (640, 1024), (8, 1552)]:
+        plan = lstm_scan_plan(B, H, n_sm=_n_sm(card))
+        assert lstm.lstm_scan_smem_bytes(B, H, plan.units, plan.stages) == plan.smem_bytes
+    tc = vocab_head_plan(640, 10000, torch.bfloat16)
+    assert VOCAB_LIB.load().vocab_head_tc_smem_bytes() == tc.smem_bytes
+
+
 @pytest.mark.parametrize(
     "G,H,V,k,dtype",
     [(70, 96, 1000, 1, torch.float32), (130, 200, 2177, 8, torch.bfloat16),
-     (5, 64, 130, 5, torch.bfloat16)],
+     (5, 64, 130, 5, torch.bfloat16),
+     (640, 1536, 10000, 5, torch.bfloat16),  # the beam step's shapes
+     (640, 1536, 10000, 5, torch.float32),
+     (200, 72, 1000, 3, torch.bfloat16)],  # aligned rows; G, H, V off every tile edge
 )
 def test_vocab_head_kernel_matches_plain(card, G, H, V, k, dtype):
+    """bf16 w takes the tensor-core tiles, fp32 w the SIMT tiles. Off the
+    tile edges: G = 130, 5, 200 (tile 128), H = 200, 72 (k-tile 32), V =
+    2177, 130, 1000 (tile 128); H = 200 with V = 2177 has rows that are not
+    16-byte aligned."""
     h = _rand(G, H, seed=G).to(card)
     w = (_rand(H, V, seed=H) / H**0.5).to(card, dtype)
     b = _rand(V, seed=V).to(card)
+    route = vocab_head_plan(G, V, dtype).route
     for normalize in (True, False):
-        before = VOCAB_LIB.launches
+        before, route_before = VOCAB_LIB.launches, ROUTE_LAUNCHES[route]
         vals, ids = vocab_head_topk(h, w, b, k, normalize=normalize)
         torch.cuda.synchronize()
         assert VOCAB_LIB.launches == before + 1
+        assert ROUTE_LAUNCHES[route] == route_before + 1
         pv, pi = vocab_head_topk_plain(h, w, b, k, normalize=normalize)
         torch.testing.assert_close(vals, pv, rtol=0, atol=1e-4)
         logits = h.to(dtype).float() @ w.float() + b
