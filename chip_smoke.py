@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive dlsg_tpu_torch's beam-5 serving path on one NVIDIA GPU.
+"""Drive dlsg_tpu_torch's beam-5 serving path and its GAN train step on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,20 @@ one JSON line per phase:
    below the plain decode's agreement with itself under a 1e-6 input
    perturbation: random weights give near-tied beams, and bf16 rounding
    spreads the LSTM kernel's ulp-sized differences into different tokens;
-5. the `kernels` line (times, bounds, launches), the nvidia-smi line, and as
+5. train: the WGAN-GP train step of CapGnnModel + DiscV2 at MSR-VTT widths
+   (bf16 compute, the plain LSTM recurrence under autograd as in the JAX
+   train config, 10 000 words, batch 128, seeded random weights): one
+   warm-up GAN step, then the median of 3 by CUDA events, the CE step the
+   same way, peak memory and a profile of one GAN step. It checks finite
+   metrics, that both models moved, num_D_visual D updates per step, lambda
+   at its start value while the window fills, no launch of either kernel
+   (the train path runs neither, like JAX's), and that 5 CE steps on one
+   batch end below the first loss. Then one GAN step at tiny dims on the
+   card and on the CPU from the same weights, dropout off and the penalty's
+   mixing weights fixed, must give the same Adam first moments, at fp32 and
+   at bf16 compute (its own line, `train_card_vs_cpu`). It also records whether `torch.mm(..., out_dtype=)`
+   carries a gradient (ops/linear.py's `_MatmulF32` exists for that);
+6. the `kernels` line (times, bounds, launches), the nvidia-smi line, and as
    the last line `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -58,10 +72,16 @@ from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import ROUTE_LAUNCHES  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_plan, vocab_head_topk  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk_plain  # noqa: E402
+from dlsg_tpu_torch.config import tiny_test_config  # noqa: E402
+from dlsg_tpu_torch.models.discriminator import DiscV2  # noqa: E402
 from dlsg_tpu_torch.models.generator import CapGnnModel  # noqa: E402
+from dlsg_tpu_torch.ops import linear as linear_mod  # noqa: E402
 from dlsg_tpu_torch.ops import lstm as lstm_mod  # noqa: E402
 from dlsg_tpu_torch.ops.linear import matmul_f32  # noqa: E402
 from dlsg_tpu_torch.serve import Captioner  # noqa: E402
+from dlsg_tpu_torch.train.gan_lambda import init_lambda_state  # noqa: E402
+from dlsg_tpu_torch.train.optim import TrainState, make_optimizer  # noqa: E402
+from dlsg_tpu_torch.train.steps import make_ce_train_step, make_gan_train_step  # noqa: E402
 from dlsg_tpu_torch.vocab import Vocabulary  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
@@ -79,6 +99,23 @@ TOKEN_AGREEMENT_MIN = 0.99
 BF16_FLOOR_MARGIN = 0.02
 DEVICE = "cuda"
 KERNEL_TOL = 1e-3
+# the train phase (bench.py's train program: lr 1.6e-4, lambda0 0.01, eps 0.9)
+TRAIN_LR = 1.6e-4
+LAMBDA0 = 0.01
+SS_EPSILON = 0.9
+TRAIN_KEY = 7
+# card-vs-CPU Adam first moments, as a share of each tensor's max-abs. fp32:
+# the two devices differ only in summation order. bf16: the Dense layers
+# round their fp32 sums to bf16 (2^-8 relative), and a sum taken in another
+# order lands one bf16 ulp away now and then; 5e-2 allows ~13 ulps of the
+# largest element after the 5 D updates and the generator's 9-step scans
+MOMENT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# ... at this learning rate: Adam's first updates are lr * sign(grad), so an
+# element whose gradient sits at rounding level moves by +-lr depending on
+# the device, and at lr 1.6e-4 that fed back into D's later substeps by
+# 1.1e-4 of a moment's max-abs at fp32 (one tensor of 117, H100 80GB HBM3).
+# At 1e-7 the moments compare the gradients, lost ones included
+MOMENT_CHECK_LR = 1e-7
 
 
 def emit(obj) -> None:
@@ -303,6 +340,8 @@ def device_profile(fn, wall_ms: float, top: int = 8) -> dict:
         (e.key, e.count, e.self_device_time_total / 1e3)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        # a range such as Optimizer.step spans kernels counted on their own
+        and not getattr(e, "is_user_annotation", False)
     ]
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
@@ -424,6 +463,186 @@ def phase_serving(cfg: DLSGConfig) -> dict:
     return result
 
 
+def train_batch(cfg: DLSGConfig, n: int, vocab: int, seed: int, device) -> dict:
+    """Features and captions of random lengths (2..max_words, 0-padded)."""
+    frames, regions = features(n, cfg, seed)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, cfg.max_words + 1, size=n)
+    caps = np.where(
+        np.arange(cfg.max_words)[None] < lengths[:, None],
+        rng.integers(4, vocab, size=(n, cfg.max_words)), 0,
+    )
+    return {k: torch.as_tensor(v, device=device) for k, v in
+            (("frames", frames), ("regions", regions), ("captions", caps), ("lengths", lengths))}
+
+
+def probe_mm_out_dtype() -> dict:
+    """What the installed torch does with autograd through
+    `torch.mm(bf16, bf16, out_dtype=float32)`. A probe of the library, not
+    a check of the port: whatever it finds, matmul_f32 differentiates
+    through its own autograd.Function."""
+    a = torch.randn(8, 16, device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.randn(16, 4, device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
+    result = {"torch": torch.__version__}
+    try:
+        out = torch.mm(a, b, out_dtype=torch.float32)
+    except RuntimeError as e:  # the probe's finding, recorded
+        return {**result, "forward": f"raises: {str(e)[:160]}"}
+    result["forward"] = f"ok, grad_fn={type(out.grad_fn).__name__ if out.grad_fn else None}"
+    if out.grad_fn is not None:
+        try:
+            out.sum().backward()
+            result["backward"] = f"ok, a.grad is {'set' if a.grad is not None else 'None'}"
+        except RuntimeError as e:  # the probe's finding, recorded
+            result["backward"] = f"raises: {str(e)[:160]}"
+    return result
+
+
+def _finite_metrics(m: dict) -> dict:
+    out = {k: float(v) for k, v in m.items() if k != "sample_tokens"}
+    if not all(np.isfinite(list(out.values()))):
+        raise AssertionError(f"non-finite train metrics: {out}")
+    return out
+
+
+def check_train_card_vs_cpu(compute_dtype: str) -> dict:
+    """One GAN step at tiny dims on the card and on the CPU from the same
+    weights, dropout switched off at its one function, epsilon 1 and fixed
+    penalty weights: the Adam first moments ((1 - beta1) grad) of G and D
+    must agree, and no tensor may have a moment on one device only."""
+    cfg = tiny_test_config(compute_dtype=compute_dtype)
+    vocab, n = 50, 4
+    batch = train_batch(cfg, n, vocab, SEED + 3, "cpu")
+    eps_gp = torch.from_numpy(np.random.default_rng(SEED).uniform(size=(cfg.num_D_visual, n)))
+    moments = {}
+    saved = linear_mod.dropout
+    linear_mod.dropout = lambda x, rate, rng: x
+    try:
+        for device in ("cpu", DEVICE):
+            g = CapGnnModel(cfg, vocab, device=device)  # seeded with cfg.seed
+            d = DiscV2(cfg, vocab, device=device)
+            gs = TrainState.create(g, make_optimizer(MOMENT_CHECK_LR))
+            ds = TrainState.create(d, make_optimizer(MOMENT_CHECK_LR))
+            step = make_gan_train_step(g, d, cfg)
+            gs, ds, _, m = step(gs, ds, init_lambda_state(LAMBDA0, device=device),
+                                {k: v.to(device) for k, v in batch.items()}, TRAIN_KEY, 1.0,
+                                eps_gp=eps_gp)
+            _finite_metrics(m)
+            moments[device] = {**{f"G.{k}": v.float().cpu() for k, v in gs.first_moments().items()},
+                               **{f"D.{k}": v.float().cpu() for k, v in ds.first_moments().items()}}
+    finally:
+        linear_mod.dropout = saved
+    tol = MOMENT_TOL[compute_dtype]
+    worst, bad = 0.0, []
+    for name, want in moments["cpu"].items():
+        got = moments[DEVICE][name]
+        scale = float(want.abs().max())
+        if (scale == 0) != (float(got.abs().max()) == 0):
+            bad.append(f"{name}: zero on one device only")
+            continue
+        ratio = float((got - want).abs().max()) / scale if scale else 0.0
+        worst = max(worst, ratio)
+        if ratio > tol:
+            bad.append(f"{name}: {ratio}")
+    if bad:
+        raise AssertionError(f"{compute_dtype} card-vs-CPU Adam moments differ: {bad[:8]}")
+    return {"tensors": len(moments["cpu"]), "worst_share_of_max_abs": worst, "tolerance": tol}
+
+
+def phase_train(cfg: DLSGConfig) -> dict:
+    """The GAN and CE train steps at MSR-VTT widths (module doc, item 5)."""
+    gen = torch.Generator().manual_seed(SEED)
+    G = CapGnnModel(cfg, VOCAB, generator=gen, device=DEVICE)
+    D = DiscV2(cfg, VOCAB, generator=gen, device=DEVICE)
+    batch = train_batch(cfg, BATCH, VOCAB, SEED + 5, DEVICE)
+    gs = TrainState.create(G, make_optimizer(TRAIN_LR))
+    ds = TrainState.create(D, make_optimizer(TRAIN_LR))
+    lstate = init_lambda_state(LAMBDA0, device=DEVICE)
+    gan_step = make_gan_train_step(G, D, cfg)
+    ce_step = make_ce_train_step(G, cfg)
+    g0 = [p.detach().clone() for p in G.parameters()]
+    d0 = [p.detach().clone() for p in D.parameters()]
+
+    # ---- the main path, with every kernel's launch count read over it ----
+    for lib in kernels.LIBRARIES:
+        lib.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics, gan_ms = [], []
+    for i in range(4):  # one warm-up step, then 3 timed by CUDA events
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gs, ds, lstate, m = gan_step(gs, ds, lstate, batch, TRAIN_KEY, SS_EPSILON)
+        end.record()
+        end.synchronize()
+        metrics.append(_finite_metrics(m))
+        if i:
+            gan_ms.append(start.elapsed_time(end))
+    peak_gan_gb = torch.cuda.max_memory_allocated() / 1e9
+    gan_step_ms = float(np.median(gan_ms))
+
+    def one_gan_step():
+        nonlocal gs, ds, lstate
+        gs, ds, lstate, _ = gan_step(gs, ds, lstate, batch, TRAIN_KEY, SS_EPSILON)
+
+    profile = device_profile(one_gan_step, gan_step_ms)
+    torch.cuda.reset_peak_memory_stats()
+    ce_state = TrainState.create(G, make_optimizer(TRAIN_LR))
+    ce_ms = []
+    for i in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ce_state, m = ce_step(ce_state, batch, TRAIN_KEY, SS_EPSILON)
+        end.record()
+        end.synchronize()
+        _finite_metrics(m)
+        if i:
+            ce_ms.append(start.elapsed_time(end))
+    peak_ce_gb = torch.cuda.max_memory_allocated() / 1e9
+    # 5 CE steps on one batch at the config's learning rate, all gold words
+    ce_state = TrainState.create(G, make_optimizer(cfg.learning_rate))
+    ce_losses = []
+    for _ in range(5):
+        ce_state, m = ce_step(ce_state, batch, TRAIN_KEY, 1.0)
+        ce_losses.append(m["cap_loss"])
+    ce_losses = [float(x) for x in ce_losses]
+    launches = {lib.name: lib.launches for lib in kernels.LIBRARIES}
+
+    steps_run = len(metrics) + 1
+    if any(launches.values()):
+        raise AssertionError(f"the train path launched a kernel: {launches}")
+    if ds.step != steps_run * cfg.num_D_visual or gs.step != steps_run:
+        raise AssertionError(f"D took {ds.step} updates and G {gs.step} in {steps_run} GAN steps")
+    if any(m["gan_lambda"] != np.float32(LAMBDA0) for m in metrics):
+        raise AssertionError(f"lambda left {LAMBDA0} before its window filled: {metrics}")
+    moved_g = any(not torch.equal(p, q) for p, q in zip(G.parameters(), g0))
+    moved_d = any(not torch.equal(p, q) for p, q in zip(D.parameters(), d0))
+    if not (moved_g and moved_d):
+        raise AssertionError(f"parameters did not move: G {moved_g}, D {moved_d}")
+    if not np.all(np.isfinite(ce_losses)) or not ce_losses[-1] < ce_losses[0]:
+        raise AssertionError(f"5 CE steps on one batch did not lower the loss: {ce_losses}")
+
+    result = {
+        "phase": "train", "config": "msr-vtt, bf16, plain LSTM recurrence (use_pallas_lstm off)",
+        "vocab": VOCAB, "batch": BATCH, "lr": TRAIN_LR, "lambda0": LAMBDA0, "epsilon": SS_EPSILON,
+        "num_D_visual": cfg.num_D_visual, "gan_single_forward": cfg.gan_single_forward,
+        "launches": launches,
+        "gan_step_ms_b128": gan_step_ms, "gan_step_ms_all": gan_ms,
+        "clips_per_s_gan": BATCH / (gan_step_ms / 1e3),
+        "ce_step_ms_b128": float(np.median(ce_ms)), "ce_step_ms_all": ce_ms,
+        "peak_mem_gb_gan": peak_gan_gb, "peak_mem_gb_ce": peak_ce_gb,
+        "metrics": metrics, "ce_losses_5_steps": ce_losses,
+        "profile_gan_step": profile,
+        "mm_out_dtype_autograd_probe": probe_mm_out_dtype(),
+    }
+    emit(result)
+    emit({"phase": "train_card_vs_cpu", "lr": MOMENT_CHECK_LR,
+          "fp32": check_train_card_vs_cpu("float32"),
+          "bf16": check_train_card_vs_cpu("bfloat16")})
+    return result
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -439,6 +658,8 @@ def main() -> None:
         ("vocab_head[simt]", check_vocab_head(cfg, torch.float32)),
     ]
     launches = phase_serving(cfg)["launches"]
+    torch.cuda.empty_cache()
+    phase_train(apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16")))
     for key, entry in checks:
         entry["launches"] = launches[key]
     emit({"kernels": [entry for _, entry in checks]})

@@ -11,9 +11,12 @@ Subpackages
 - ``vocab``      : Vocabulary and special-token ids
 - ``bundle``     : single-file serving bundles (format shared with dlsg_tpu)
 - ``weights``    : flax parameter tree <-> torch state_dict
-- ``ops``        : LSTM primitives, exact top-k, beam search, Dense/LayerNorm
+- ``ops``        : LSTM primitives, exact top-k, beam search, Dense/LayerNorm,
+                   dropout, losses (WGAN-GP)
 - ``kernels``    : CUDA kernels (lstm_scan, vocab_head) with plain versions
-- ``models``     : CapGnnModel (encoders, decoder, shared layers)
+- ``models``     : CapGnnModel (encoders, decoder, shared layers), DiscV2
+- ``train``      : Adam train states, schedules, the GAN-lambda machine, the
+                   CE and WGAN-GP train steps
 - ``evaluation`` : greedy and beam decode functions
 - ``serve``      : load-once Captioner (bucketed batches, warmup)
 

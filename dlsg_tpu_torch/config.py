@@ -112,6 +112,9 @@ class DLSGConfig:
     decode_approx_topk: float = 1.0
     decode_quant: str = "none"  # 'none' | 'int8' (int8 is not ported yet)
     gan_single_forward: bool = True
+    # JAX computes the penalty's parameter gradient by reverse-over-forward
+    # when true; this package has one implementation (a double backward)
+    # for both values, which give the same gradient
     gan_gp_custom_vjp: bool = True
     disc_scan_unroll: int = 1
     disc_remat: str = "none"

@@ -2,7 +2,8 @@
 
 Counterpart of `dlsg_tpu/ops/pallas/lstm_scan.py::lstm_scan_pallas`: one LSTM
 direction with h0 = c0 = 0, h kept in fp32, W_hh rounded to bf16, fp32
-accumulation, gates in (i, f, g, o) order. Forward only.
+accumulation, gates in (i, f, g, o) order. Forward only: with a gradient
+required it raises, as JAX cannot differentiate the Pallas kernel either.
 
 On the card one cooperative launch runs the whole direction: each block keeps
 its slice of W_hh in shared memory for all steps, and a grid barrier
@@ -111,7 +112,13 @@ def lstm_scan(xw: torch.Tensor, w_hh: torch.Tensor, *, reverse: bool = False) ->
 
     A CPU tensor takes `lstm_scan_plain`; a CUDA tensor launches the kernel
     (one launch per call) or raises, ValueError for a shape whose W_hh does
-    not fit (`lstm_scan_plan`)."""
+    not fit (`lstm_scan_plan`). The kernel has no backward (nor has the JAX
+    one), so on either device a call that autograd would have to
+    differentiate raises NotImplementedError."""
+    if torch.is_grad_enabled() and (xw.requires_grad or w_hh.requires_grad):
+        raise NotImplementedError(
+            "lstm_scan has no backward kernel; set use_pallas_lstm=False to train"
+        )
     if xw.device.type == "cpu":
         return lstm_scan_plain(xw, w_hh, reverse=reverse)
     if xw.device.type != "cuda":

@@ -9,8 +9,15 @@ As in the JAX package, all loop-invariant work runs once per sequence in
 `DecoderStep.precompute`: the attention K/V projections, the global-feature
 slice of the query LSTM's input projection, and the fused per-step weight
 stacks, so a step runs a few large matmuls. Beam search decodes all B*beam
-hypotheses in one batched step. This slice ports inference: greedy decoding
-and the beam step. The teacher-forced training loop comes with training.
+hypotheses in one batched step.
+
+Training runs the teacher-forced scan (`Decoder.forward` with captions):
+one scheduled-sampling coin per step for the whole batch, and dropout at
+the JAX sites: `cfg.dropout` on the word embedding, the query LayerNorm's
+output and lang_h (before it becomes the recurrent state, so the dropped
+lang_h feeds the logits and the next step); 0.1 (`context_att.drop`) as one
+mask over both branches' concatenated context. Greedy decoding and the beam
+step are always deterministic.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from torch import nn
 
 from dlsg_tpu_torch.config import DLSGConfig
 from dlsg_tpu_torch.models.layers import AttentionShare
-from dlsg_tpu_torch.ops.linear import LN_EPS, Dense, Embed, LayerNorm, matmul_f32
+from dlsg_tpu_torch.ops.linear import LN_EPS, Dense, Dropout, Embed, LayerNorm, matmul_f32
 from dlsg_tpu_torch.ops.lstm import LSTMCell, SplitInputLSTMCell, lstm_gates
 from dlsg_tpu_torch.vocab import START_ID
 
@@ -61,15 +68,18 @@ class DecoderStep(nn.Module):
         vh, qh, dh = cfg.visual_hidden_size, cfg.query_hidden_size, cfg.decode_hidden_size
         nb = 2 if multi_modal else 1
         self.word_embed = Embed(vocab_size, cfg.word_size)
+        self.word_drop = Dropout(cfg.dropout)
         # query LSTM input = [lang_h, word | global_feat]: the global part is
         # loop-invariant and projected once per sequence
         self.query_lstm = SplitInputLSTMCell(dh + cfg.word_size, nb * vh, qh, dtype=cd)
         self.query_lstm_layernorm = LayerNorm(qh)
+        self.query_drop = Dropout(cfg.dropout)
         self.context_att = AttentionShare(vh, qh, vh, dtype=cd)
         if multi_modal:
             self.context_att_2 = AttentionShare(vh, qh, vh, dtype=cd)
         self.lang_lstm = LSTMCell(nb * vh + qh, dh, dtype=cd)
         self.lang_lstm_layernorm = LayerNorm(dh)
+        self.lang_drop = Dropout(cfg.dropout)
         self.word_restore = Dense(dh, vocab_size, dtype=cd, kernel_init="xavier_normal")
 
     def _atts(self):
@@ -100,8 +110,10 @@ class DecoderStep(nn.Module):
         pre["bv"] = self.word_restore.bias.float()
         return pre
 
-    def decode_hidden(self, word, query_h, query_c, lang_h, lang_c, pre: Pre):
-        """The step chain up to (not including) the vocab projection.
+    def decode_hidden(self, word, query_h, query_c, lang_h, lang_c, pre: Pre,
+                      rng: Optional[torch.Generator] = None):
+        """The step chain up to (not including) the vocab projection; dropout
+        in training mode when given `rng`.
 
         Returns (decoder_output [B, Hd], q_h, q_c, l_h, l_c, alpha [B, NB*P])."""
         cd = self.cfg.cdtype
@@ -109,7 +121,7 @@ class DecoderStep(nn.Module):
         x = torch.cat([lang_h, word, query_h], dim=-1)
         gates = matmul_f32(x.to(cd), pre["Wq"]) + pre["bq"] + pre["gw"].float()
         q_h, q_c = lstm_gates(gates, query_c, cd)
-        query_current = self.query_lstm_layernorm(q_h)
+        query_current = self.query_drop(self.query_lstm_layernorm(q_h), rng)
 
         q12 = matmul_f32(query_current.to(cd), pre["WQ"])
         ctxs, alphas = [], []
@@ -128,25 +140,29 @@ class DecoderStep(nn.Module):
             alphas.append(an)
         ctx = torch.cat(ctxs, dim=-1)
         alpha = torch.cat(alphas, dim=-1)
+        ctx = self._atts()[0].drop(ctx, rng)  # one mask over both branches
 
         lang_x = torch.cat([ctx, query_current, lang_h], dim=-1)
         gates2 = matmul_f32(lang_x.to(cd), pre["Wl"]) + pre["bl"]
         l_h, l_c = lstm_gates(gates2, lang_c, cd)
+        l_h = self.lang_drop(l_h, rng)  # the dropped l_h is also the next state
         decoder_output = torch.tanh(self.lang_lstm_layernorm(l_h))
         return decoder_output, q_h, q_c, l_h, l_c, alpha
 
-    def decode(self, word, query_h, query_c, lang_h, lang_c, pre: Pre):
+    def decode(self, word, query_h, query_c, lang_h, lang_c, pre: Pre,
+               rng: Optional[torch.Generator] = None):
         """`decode_hidden` plus the vocab projection: logits [B, V] first."""
         out, q_h, q_c, l_h, l_c, alpha = self.decode_hidden(
-            word, query_h, query_c, lang_h, lang_c, pre
+            word, query_h, query_c, lang_h, lang_c, pre, rng
         )
         logits = matmul_f32(out.to(self.cfg.cdtype), pre["Wv"]) + pre["bv"]
         return logits, q_h, q_c, l_h, l_c, alpha
 
 
 class Decoder(nn.Module):
-    """Sequence-level decoder: greedy inference here; beam search drives
-    `beam_step` / `beam_step_hidden` from `ops.beam_search`."""
+    """Sequence-level decoder: the teacher-forced training scan or greedy
+    inference; beam search drives `beam_step` / `beam_step_hidden` from
+    `ops.beam_search`."""
 
     def __init__(self, cfg: DLSGConfig, vocab_size: int, multi_modal: bool = True):
         super().__init__()
@@ -176,11 +192,18 @@ class Decoder(nn.Module):
         return {"qh": qh, "qc": torch.zeros_like(qh), "lh": lh, "lc": torch.zeros_like(lh)}
 
     def forward(
-        self, feats, captions: Optional[torch.Tensor] = None, feats2=None
+        self,
+        feats,
+        captions: Optional[torch.Tensor] = None,
+        teacher_forcing_ratio: float = 1.0,
+        feats2=None,
+        rng: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Greedy decode: (token ids [B, T] int64, alpha [B, T, NB*P])."""
+        """Teacher-forced scan (captions given): (logits [B, T, V] fp32,
+        alpha [B, T, NB*P]). Greedy decode (captions None): (token ids [B, T]
+        int64, alpha)."""
         if captions is not None:
-            raise NotImplementedError("teacher-forced decoding is not ported yet")
+            return self._teacher_forced(feats, captions, teacher_forcing_ratio, feats2, rng)
         pre = self._precompute(feats, feats2)
         st = self._init_state(feats)
         qh, qc, lh, lc = st["qh"], st["qc"], st["lh"], st["lc"]
@@ -193,6 +216,32 @@ class Decoder(nn.Module):
             ids.append(word_id)
             alphas.append(alpha)
         return torch.stack(ids, dim=1), torch.stack(alphas, dim=1)
+
+    def _teacher_forced(self, feats, captions, ratio: float, feats2, rng):
+        """The training scan (JAX `Decoder.__call__` with captions). In
+        training mode with `rng`: one coin per step for the whole batch,
+        true with probability `ratio`, drawn up front on the device; the
+        step's next word is the gold word where the coin is true, else the
+        argmax of its logits. Otherwise every coin is true."""
+        T = self.cfg.max_words
+        B = feats.shape[0]
+        pre = self._precompute(feats, feats2)
+        st = self._init_state(feats)
+        qh, qc, lh, lc = st["qh"], st["qc"], st["lh"], st["lc"]
+        gold = captions[:, :T].long()
+        if self.training and rng is not None:
+            coins = torch.rand(T, generator=rng, device=feats.device) < ratio
+        else:
+            coins = torch.ones(T, dtype=torch.bool, device=feats.device)
+        word_id = torch.full((B,), START_ID, dtype=torch.int64, device=feats.device)
+        logits_all, alphas = [], []
+        for t in range(T):
+            word = self.step.word_drop(self.step.word_embed(word_id), rng)
+            logits, qh, qc, lh, lc, alpha = self.step.decode(word, qh, qc, lh, lc, pre, rng)
+            word_id = torch.where(coins[t], gold[:, t], logits.detach().argmax(dim=-1))
+            logits_all.append(logits)
+            alphas.append(alpha)
+        return torch.stack(logits_all, dim=1), torch.stack(alphas, dim=1)
 
     def beam_step(self, word_id, state: State, pre: Pre):
         """One beam step over the flattened group: (raw logits [G, V],

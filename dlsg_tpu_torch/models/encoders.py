@@ -6,6 +6,10 @@
   proposal pooling (reference models/layer.py:139-201)
 - `CapGnnEncoder`: the two-branch object/motion encoder of CapGnnModel
   (reference models/model.py:56-73)
+
+Dropout: `cfg.dropout` after the Bi-LSTM's LayerNorm and on the
+self-attention output, LatentPSL's own 0.3, in training mode when the
+forward is given a generator `rng`.
 """
 
 from __future__ import annotations
@@ -18,12 +22,12 @@ from torch import nn
 
 from dlsg_tpu_torch.config import DLSGConfig
 from dlsg_tpu_torch.models.layers import LatentPSL, SelfAttention, TanhLayerNorm
-from dlsg_tpu_torch.ops.linear import Dense, LayerNorm, matmul_f32
+from dlsg_tpu_torch.ops.linear import Dense, Dropout, LayerNorm, matmul_f32
 from dlsg_tpu_torch.ops.lstm import BiLSTM
 
 
 class EncoderVisual(nn.Module):
-    """Linear embed -> Bi-LSTM -> LN -> self-attention (+LN): [B, T, F] ->
+    """Linear embed -> Bi-LSTM -> LN -> dropout -> self-attention (+LN): [B, T, F] ->
     [B, T, H]. `use_pallas_lstm` routes the Bi-LSTM to the lstm_scan kernel."""
 
     def __init__(self, cfg: DLSGConfig, in_features: int):
@@ -33,13 +37,16 @@ class EncoderVisual(nn.Module):
         self.linear_embed = Dense(in_features, H, dtype=cd, kernel_init="xavier_normal")
         self.lstm = BiLSTM(H, H, dtype=cd, use_pallas=cfg.use_pallas_lstm)
         self.layernorm_lstm = LayerNorm(2 * H)
-        self.self_attention = SelfAttention(2 * H, 2 * H, H, get_pe=True, dtype=cd)
+        self.drop = Dropout(cfg.dropout)
+        self.self_attention = SelfAttention(
+            2 * H, 2 * H, H, get_pe=True, dtype=cd, dropout=cfg.dropout
+        )
         self.layernorm_sa = LayerNorm(H)
 
-    def forward(self, inputs):
+    def forward(self, inputs, rng: Optional[torch.Generator] = None):
         x = self.lstm(self.linear_embed(inputs))  # [B, T, 2H] fp32
-        x = self.layernorm_lstm(x)
-        return self.layernorm_sa(self.self_attention(x))
+        x = self.drop(self.layernorm_lstm(x), rng)
+        return self.layernorm_sa(self.self_attention(x, rng=rng))
 
 
 class EncoderVisualGraphTUN(nn.Module):
@@ -68,7 +75,8 @@ class EncoderVisualGraphTUN(nn.Module):
         self.obj_visual_norm = TanhLayerNorm(vh, dtype=cd)
         self.v2l_layer = LatentPSL(vh, cfg.num_proposals)
 
-    def forward(self, visual_feats, obj_feats, obj_embedded=None):
+    def forward(self, visual_feats, obj_feats, obj_embedded=None,
+                rng: Optional[torch.Generator] = None):
         cd = self.cfg.cdtype
         B, T, O, obj_size = obj_feats.shape
         visual_embed = visual_feats
@@ -85,7 +93,7 @@ class EncoderVisualGraphTUN(nn.Module):
             adj = torch.softmax(adj, dim=-1)  # over the T*O object axis
             obj_agg = matmul_f32(adj.to(cd), obj)
             obj_visual = self.obj_visual_norm(obj_agg + visual_embed)
-        return self.v2l_layer(obj_visual)  # [B, num_psl, H]
+        return self.v2l_layer(obj_visual, rng)  # [B, num_psl, H]
 
 
 class CapGnnEncoder(nn.Module):
@@ -105,7 +113,9 @@ class CapGnnEncoder(nn.Module):
         self.motion_pre_encoder = EncoderVisual(cfg, cfg.feature_size)
         self.motion_encoder = EncoderVisualGraphTUN(cfg, None, own_obj_embed=not joint)
 
-    def forward(self, visual_feats, region_feats) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(
+        self, visual_feats, region_feats, rng: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         obj_e1 = obj_e2 = None
         if region_feats.shape[2] >= 5 and self.obj_embed_joint is not None:
@@ -113,8 +123,8 @@ class CapGnnEncoder(nn.Module):
             obj_e1 = joint[..., : cfg.region_projected_size]
             obj_e2 = joint[..., cfg.region_projected_size :]
         obj_proposals = self.obj_encoder(
-            visual_feats[:, :, : cfg.a_feature_size], region_feats, obj_e1
+            visual_feats[:, :, : cfg.a_feature_size], region_feats, obj_e1, rng
         )
-        motion_input = self.motion_pre_encoder(visual_feats)
-        motion_proposals = self.motion_encoder(motion_input, region_feats, obj_e2)
+        motion_input = self.motion_pre_encoder(visual_feats, rng)
+        motion_proposals = self.motion_encoder(motion_input, region_feats, obj_e2, rng)
         return obj_proposals, motion_proposals

@@ -40,7 +40,8 @@ class CapGnnModel(nn.Module, _BeamDecodeMixin):
 
     Weights are drawn from `generator` (default: seeded with `cfg.seed`) with
     the JAX modules' initializers, and the model is moved to `device`
-    (default `cuda`; pass ``device="cpu"`` to run on the CPU)."""
+    (default `cuda`; pass ``device="cpu"`` to run on the CPU). It starts in
+    eval mode; the train steps switch it to training mode for a step."""
 
     def __init__(
         self,
@@ -60,10 +61,29 @@ class CapGnnModel(nn.Module, _BeamDecodeMixin):
         self.eval()
         self.to(device)
 
-    def forward(self, visual_feats, region_feats, caption: Optional[torch.Tensor] = None):
-        """Greedy decode: (ids [B, T], obj_psl, motion_psl, alpha [B, T, 2P])."""
-        obj_psl, motion_psl = self.encoder(visual_feats, region_feats)
-        outputs, alpha_all = self.decoder(obj_psl, caption, motion_psl)
+    def forward(
+        self,
+        visual_feats,
+        region_feats,
+        caption: Optional[torch.Tensor] = None,
+        teacher_forcing_ratio: float = 1.0,
+        rng: Optional[torch.Generator] = None,
+    ):
+        """(outputs, obj_psl, motion_psl, alpha [B, T, 2P]).
+
+        With `caption` [B, T]: the teacher-forced training forward, outputs
+        are logits [B, T, V]; in training mode it needs `rng`, a generator on
+        the model's device, for dropout and the scheduled-sampling coins.
+        Without: greedy decode, outputs are token ids [B, T] and nothing is
+        dropped."""
+        if caption is None:
+            rng = None
+        elif self.training and rng is None:
+            raise ValueError("a training-mode forward needs rng, a torch.Generator on the model's device")
+        obj_psl, motion_psl = self.encoder(visual_feats, region_feats, rng)
+        outputs, alpha_all = self.decoder(
+            obj_psl, caption, teacher_forcing_ratio, motion_psl, rng
+        )
         return outputs, obj_psl, motion_psl, alpha_all
 
     def encode(self, visual_feats, region_feats):

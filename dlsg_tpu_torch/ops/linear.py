@@ -6,6 +6,9 @@ keeps both:
 - `jnp.dot(a, b, preferred_element_type=float32)` multiplies operands rounded
   to their dtype and returns fp32: `matmul_f32` here;
 - flax `nn.Dense(dtype=bf16)` returns bf16: `Dense` here.
+
+`dropout` is flax's `nn.Dropout` on an explicit generator; `Dropout` is a
+site of it inside a module.
 """
 
 from __future__ import annotations
@@ -25,18 +28,86 @@ LN_EPS = 1e-5
 _TRUNC_STD = 0.87962566103423978
 
 
+def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_cuda:  # the tensor cores, fp32 accumulation and output
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 x bf16 -> fp32 product with JAX's transpose rule for
+    `dot(..., preferred_element_type=float32)`: the fp32 cotangent times the
+    other operand upcast to fp32, cast back to the operand's dtype.
+
+    The backward is built from differentiable fp32 products, so it can be
+    differentiated again (the gradient penalty's double backward). A
+    function of its own because `torch.mm(..., out_dtype=...)` has no
+    autograd formula."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bf16_product(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """fp32 product of `a` and `b` as given (2-D or batched 3-D): bf16
     operands are multiplied exactly and accumulated in fp32.
 
-    On a card, bf16 operands go to the tensor cores with an fp32 output;
-    elsewhere the operands are upcast, which computes the same function."""
-    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
-        if a.dim() == 2 and b.dim() == 2:
-            return torch.mm(a, b, out_dtype=torch.float32)
-        if a.dim() == 3 and b.dim() == 3:
-            return torch.bmm(a, b, out_dtype=torch.float32)
+    Two bf16 operands of the same rank (2-D, or 3-D with one batch size) go
+    through `_MatmulF32`: on a card the tensor cores with an fp32 output,
+    elsewhere the upcast product, which computes the same function; the
+    gradient is JAX's on every device. Other operands are upcast."""
+    if (
+        a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
+        and a.dim() == b.dim() and a.dim() in (2, 3)
+        and (a.dim() == 2 or a.shape[0] == b.shape[0])
+    ):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b)
+        return _bf16_product(a, b)
     return torch.matmul(a.float(), b.float())
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate); identity when `rng` is None
+    (deterministic) or rate is 0. The mask is drawn from `rng`, a generator
+    on x's device, never from the global RNG. Every dropout site of the
+    package calls this one function."""
+    if rng is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """A dropout site with its (hard-coded or configured) rate: `dropout`
+    in training mode when the call passes a generator, identity otherwise."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.rate, rng if self.training else None)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
 
 
 def trunc_normal_fan_(w: torch.Tensor, fan: float, generator=None) -> torch.Tensor:

@@ -1,0 +1,188 @@
+"""Train steps (counterpart of `dlsg_tpu/train/steps.py`; reference
+run_gun.py:147-234 and run_graph.py:109-134).
+
+- CE step: teacher-forced generator forward, masked CE, one Adam update.
+- GAN step: a generator forward with its outputs detached for the D phase;
+  `num_D_visual` WGAN-GP discriminator substeps, each scoring real | fake in
+  one `groups=2` pass and running the gradient penalty separately at B; then
+  the generator update with cap_loss + lambda * (-D(fake)), lambda from the
+  on-device state machine fed with this step's cap_loss.
+
+Gradients are taken with `torch.autograd.grad` against each state's own
+parameter list, so the generator head never writes D's gradients and the D
+loss never writes G's. A step's random draws (dropout masks, the
+scheduled-sampling coins, the penalty's mixing weights) come from one
+`torch.Generator` on the models' device, seeded from (key, step). The steps
+switch the models to training mode and restore their modes after.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from dlsg_tpu_torch.config import DLSGConfig
+from dlsg_tpu_torch.ops.losses import (
+    GP_WEIGHT,
+    gradient_penalty,
+    masked_cross_entropy,
+    to_onehot,
+    wgan_g_loss,
+)
+from dlsg_tpu_torch.train.gan_lambda import LambdaState, lambda_update
+from dlsg_tpu_torch.train.optim import TrainState
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def make_masks(captions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """seq mask (captions > 0) and its outer-product attention mask
+    (run_gun.py:164-166)."""
+    seq_mask = (captions > 0).float()
+    return seq_mask, seq_mask[:, :, None] * seq_mask[:, None, :]
+
+
+def step_generator(key: int, step: int, device) -> torch.Generator:
+    """The generator of step `step` under seed `key`, on `device`."""
+    seed = np.random.SeedSequence([key, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+@contextlib.contextmanager
+def _training(*modules: nn.Module):
+    modes = [m.training for m in modules]
+    for m in modules:
+        m.train()
+    try:
+        yield
+    finally:
+        for m, mode in zip(modules, modes):
+            m.train(mode)
+
+
+def _device(module: nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def _batch(batch: Mapping[str, Any], device) -> List[torch.Tensor]:
+    """(frames, regions, captions, lengths) as tensors on `device`."""
+    frames, regions, captions, lengths = (
+        torch.as_tensor(batch[k], device=device)
+        for k in ("frames", "regions", "captions", "lengths")
+    )
+    return [frames, regions, captions.long(), lengths]
+
+
+def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d params; a parameter the loss does not reach gets zeros,
+    as under jax.grad."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def make_ce_train_step(model: nn.Module, cfg: DLSGConfig):
+    """CE-only generator step: step(state, batch, key, epsilon) ->
+    (state, {"cap_loss", "sample_tokens"})."""
+
+    def step(state: TrainState, batch: Mapping[str, Any], key: int, epsilon: float):
+        dev = _device(model)
+        frames, regions, captions, lengths = _batch(batch, dev)
+        rng = step_generator(key, state.step, dev)
+        with _training(model):
+            out, *_ = model(frames, regions, captions, epsilon, rng=rng)
+        loss = masked_cross_entropy(out, captions, lengths)
+        state.apply_gradients(_grads(loss, state.params))
+        return state, {"cap_loss": loss.detach(), "sample_tokens": out[0].detach().argmax(-1)}
+
+    return step
+
+
+def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGConfig):
+    """The D-LSG adversarial step:
+
+        step(gen_state, disc_state, lstate, batch, key, epsilon, eps_gp=None)
+          -> (gen_state, disc_state, lstate, metrics)
+
+    `eps_gp` [num_D_visual, B], when given, replaces the penalty's mixing
+    weights that the step would draw (tests feed JAX's draw). With
+    `cfg.gan_single_forward` one generator forward serves both phases: the D
+    phase sees its outputs detached and the G gradient is pulled back
+    through the same forward after the D phase. Otherwise the G phase runs a
+    second forward with its own draw. Both `cfg.gan_gp_custom_vjp` values
+    take the one penalty implementation (ops/losses.py). Metrics are device
+    tensors: cap_loss, loss_G, loss_D, wasserstein and grad_penalty (the
+    last three averaged over the substeps), gan_lambda, sample_tokens."""
+    vocab_size = gen_model.vocab_size
+    num_d = cfg.num_D_visual
+    single_fwd = cfg.gan_single_forward
+
+    def step(
+        gen_state: TrainState,
+        disc_state: TrainState,
+        lstate: LambdaState,
+        batch: Mapping[str, Any],
+        key: int,
+        epsilon: float,
+        eps_gp: Optional[torch.Tensor] = None,
+    ) -> Tuple[TrainState, TrainState, LambdaState, Metrics]:
+        dev = _device(gen_model)
+        frames, regions, captions, lengths = _batch(batch, dev)
+        _, att_mask = make_masks(captions)
+        r_caption = to_onehot(captions, vocab_size)
+        B = captions.shape[0]
+        rng = step_generator(key, gen_state.step, dev)
+
+        with _training(gen_model, disc_model):
+            # ---- D phase: the generator's outputs, detached (run_gun.py:167-178)
+            with torch.set_grad_enabled(single_fwd):
+                out, obj, mot, alpha = gen_model(frames, regions, captions, epsilon, rng=rng)
+            f_caption, obj, mot, alpha = (t.detach() for t in (out, obj, mot, alpha))
+            obj2, mot2, att2, alpha2 = (
+                torch.cat([t, t], dim=0) for t in (obj, mot, att_mask, alpha)
+            )
+            real_fake = torch.cat([r_caption, f_caption], dim=0)
+
+            def d_fn(caps):
+                return disc_model(caps, obj, mot, att_mask, alpha, rng=rng)
+
+            d_stats = []
+            for i in range(num_d):
+                if eps_gp is None:
+                    eps = torch.rand(B, 1, 1, generator=rng, device=dev)
+                else:
+                    eps = torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev)
+                eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
+                scores = disc_model(real_fake, obj2, mot2, att2, alpha2, groups=2, rng=rng)
+                r_loss, f_loss = scores[:B].mean(), scores[B:].mean()
+                gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
+                loss_d = f_loss - r_loss + GP_WEIGHT * gp
+                disc_state.apply_gradients(_grads(loss_d, disc_state.params))
+                d_stats.append(torch.stack([loss_d, r_loss - f_loss, gp]).detach())
+
+            # ---- G phase (run_gun.py:183,215-218): D scores the raw logits;
+            # proposals and alpha stay detached
+            if not single_fwd:
+                out, obj, mot, alpha = gen_model(frames, regions, captions, epsilon, rng=rng)
+                obj, mot, alpha = obj.detach(), mot.detach(), alpha.detach()
+            cap_loss = masked_cross_entropy(out, captions, lengths)
+            loss_g = wgan_g_loss(disc_model(out, obj, mot, att_mask, alpha, rng=rng))
+
+        lstate, gan_lambda = lambda_update(lstate, cap_loss)
+        gen_state.apply_gradients(_grads(cap_loss + gan_lambda * loss_g, gen_state.params))
+        loss_d, wasserstein, gp = torch.stack(d_stats).mean(dim=0)
+        metrics = {
+            "cap_loss": cap_loss.detach(),
+            "loss_G": loss_g.detach(),
+            "loss_D": loss_d,
+            "wasserstein": wasserstein,
+            "grad_penalty": gp,
+            "gan_lambda": gan_lambda,
+            "sample_tokens": out[0].detach().argmax(-1),
+        }
+        return gen_state, disc_state, lstate, metrics
+
+    return step

@@ -7,8 +7,9 @@ Module names are the same in both packages, so a flax path maps to a
 | flax leaf                     | torch leaf                           |
 |-------------------------------|--------------------------------------|
 | Dense `kernel` [in, out]      | Linear `weight` [out, in] (transpose)|
+| Conv `kernel` [k, in, out]    | Conv1d `weight` [out, in, k]         |
 | LayerNorm `scale` [D]         | `weight` [D]                         |
-| `bias`, `embedding`, `w_hh`, `theta` | unchanged                     |
+| `bias`, `embedding`, `w_hh`, `theta`, `fusion` | unchanged           |
 
 LSTM layouts are the JAX ones: `ih` holds b_ih + b_hh in one bias and `w_hh`
 is [H, 4H] with gates in (i, f, g, o) order; `SplitInputLSTMCell` holds
@@ -41,9 +42,11 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         arr = np.asarray(leaf, dtype=np.float32)
         *mods, name = path
         if name == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense kernel, got {arr.shape}")
-            arr = arr.T
+            if arr.ndim not in (2, 3):
+                raise ValueError(
+                    f"{'/'.join(path)}: expected a 2-D Dense or 3-D Conv kernel, got {arr.shape}"
+                )
+            arr = arr.T  # [in, out] -> [out, in]; [k, in, out] -> [out, in, k]
         key = ".".join([*mods, _TO_TORCH.get(name, name)])
         out[key] = torch.tensor(arr)  # a copy: bundle arrays may be read-only
     return out
@@ -56,9 +59,9 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         arr = t.detach().to("cpu", torch.float32).numpy()
         *mods, name = key.split(".")
         if name == "weight":
-            # Linear weights are 2-D, LayerNorm weights 1-D
-            name = "kernel" if arr.ndim == 2 else "scale"
-            if arr.ndim == 2:
+            # Linear weights are 2-D, Conv1d weights 3-D, LayerNorm weights 1-D
+            name = "scale" if arr.ndim == 1 else "kernel"
+            if arr.ndim > 1:
                 arr = arr.T
         node = tree
         for m in mods:

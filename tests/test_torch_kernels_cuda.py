@@ -8,7 +8,10 @@ imports none and runs without the suite's conftest:
 Tolerances: the kernels sum fp32 products in another order than cuBLAS (the
 LSTM kernel's three bf16 terms of h give the fp32 product up to that order):
 atol 1e-4 on LSTM states and top-k values; vocab ids equal except near-ties
-within 1e-4 of each other."""
+within 1e-4 of each other. The train path runs no kernel; its card-only
+tests hold matmul_f32's gradients (bf16 operands, cast back to bf16: one
+bf16 ulp, rtol 2^-7) and one tiny GAN step's Adam moments (fp32, 1e-4 of
+each tensor's max-abs) against the CPU."""
 
 import numpy as np
 import pytest
@@ -25,7 +28,13 @@ from dlsg_tpu_torch.kernels.vocab_head import (
     vocab_head_topk,
     vocab_head_topk_plain,
 )
+from dlsg_tpu_torch.models.discriminator import DiscV2
 from dlsg_tpu_torch.models.generator import CapGnnModel
+from dlsg_tpu_torch.ops import linear
+from dlsg_tpu_torch.ops.linear import matmul_f32
+from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
+from dlsg_tpu_torch.train.optim import TrainState, make_optimizer
+from dlsg_tpu_torch.train.steps import make_gan_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +182,61 @@ def test_tiny_decode_on_card_matches_cpu(card, fused):
     ids = gpu(frames, regions)
     assert LSTM_LIB.launches == before + 2
     assert ids.cpu().tolist() == cpu(frames, regions).tolist()
+
+
+@pytest.mark.parametrize("shapes", [((12, 24), (24, 8)), ((3, 12, 24), (3, 24, 8))])
+def test_matmul_f32_gradients_match_cpu(card, shapes):
+    """bf16 operands: the product (tensor cores on the card), its gradient
+    and a gradient of that gradient (the penalty's double backward) agree
+    with the CPU, where the product is the upcast one."""
+    a0 = _rand(*shapes[0], seed=1).to(torch.bfloat16)
+    b0 = _rand(*shapes[1], seed=2).to(torch.bfloat16)
+
+    def run(device):
+        a, b = a0.to(device).requires_grad_(True), b0.to(device).requires_grad_(True)
+        out = matmul_f32(a, b)
+        assert out.dtype == torch.float32 and out.grad_fn is not None
+        w = _rand(*out.shape, seed=3).to(device)
+        ga, gb = torch.autograd.grad((out * w).sum(), (a, b), create_graph=True)
+        assert ga.dtype == gb.dtype == torch.bfloat16
+        gga, ggb = torch.autograd.grad((ga.float() ** 2).sum() + (gb.float() ** 2).sum(), (a, b))
+        return [t.detach().float().cpu() for t in (out, ga, gb, gga, ggb)]
+
+    for got, want in zip(run(card), run("cpu")):
+        assert float(want.abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=2**-7, atol=1e-4 * float(want.abs().max()))
+
+
+def test_tiny_gan_step_on_card_matches_cpu(card, monkeypatch):
+    """One fp32 GAN step at tiny dims from the same weights, dropout off,
+    fixed penalty weights: the same Adam first moments on both devices, and
+    no tensor with a moment on one device only (a lost gradient)."""
+    monkeypatch.setattr(linear, "dropout", lambda x, rate, rng: x)
+    cfg = tiny_test_config()
+    rng = np.random.default_rng(6)
+    n, V = 4, 50
+    lengths = rng.integers(2, cfg.max_words + 1, size=n)
+    batch = {
+        "frames": rng.normal(size=(n, cfg.max_frames, cfg.feature_size)).astype(np.float32),
+        "regions": rng.normal(size=(n, cfg.max_frames, cfg.num_obj, cfg.region_feature_size)).astype(np.float32),
+        "captions": np.where(np.arange(cfg.max_words)[None] < lengths[:, None],
+                             rng.integers(4, V, size=(n, cfg.max_words)), 0),
+        "lengths": lengths,
+    }
+    eps_gp = torch.from_numpy(rng.uniform(size=(cfg.num_D_visual, n)))
+    moments = []
+    for device in ("cpu", card):
+        g, d = CapGnnModel(cfg, V, device=device), DiscV2(cfg, V, device=device)
+        # a learning rate too small for D's sign-like first Adam updates to
+        # feed rounding-level differences back into its later substeps
+        gs, ds = TrainState.create(g, make_optimizer(1e-7)), TrainState.create(d, make_optimizer(1e-7))
+        gs, ds, _, _ = make_gan_train_step(g, d, cfg)(
+            gs, ds, init_lambda_state(0.01, device=device), batch, 3, 1.0, eps_gp=eps_gp
+        )
+        moments.append({**{f"G.{k}": v.cpu() for k, v in gs.first_moments().items()},
+                        **{f"D.{k}": v.cpu() for k, v in ds.first_moments().items()}})
+    want, got = moments
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        assert (scale == 0) == (float(got[name].abs().max()) == 0), name
+        torch.testing.assert_close(got[name], w, rtol=0, atol=1e-4 * scale, msg=name)

@@ -63,12 +63,33 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert LIBRARY.launches == before  # no kernel launch for a CPU tensor
 
 
+def test_wrapper_refuses_to_be_differentiated():
+    """No backward kernel: with a gradient required the wrapper raises on
+    every device (here the CPU, which would otherwise take the plain,
+    differentiable version), and the module routed to it raises too; under
+    no_grad it runs."""
+    xw, w = (torch.from_numpy(a) for a in _xw(2, 3, 4, seed=5))
+    with pytest.raises(NotImplementedError, match="use_pallas_lstm=False"):
+        lstm_scan(xw.requires_grad_(True), w)
+    with pytest.raises(NotImplementedError):
+        lstm_scan(xw.detach(), w.requires_grad_(True))
+    seq = LSTMSequence(3, 4, use_pallas=True)
+    with pytest.raises(NotImplementedError):
+        seq(torch.zeros(2, 3, 3))
+    with torch.no_grad():
+        lstm_scan(xw, w)
+        seq(torch.zeros(2, 3, 3))
+    with torch.inference_mode():
+        lstm_scan(xw, w)
+
+
 def _run_both(jax_mod, torch_mod, x):
     params = jax_mod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
     want = jax_mod.apply({"params": params}, jnp.asarray(x))
     torch_mod.load_state_dict(params_from_jax(params))
-    got = torch_mod(torch.from_numpy(x))
-    return got.detach().numpy(), np.asarray(want)
+    with torch.no_grad():  # the kernel path is forward only
+        got = torch_mod(torch.from_numpy(x))
+    return got.numpy(), np.asarray(want)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

@@ -93,8 +93,8 @@ def test_vocab_matches_jax():
 
 
 def test_package_imports_no_jax():
-    """Importing the port and every submodule pulls in no jax, flax or
-    dlsg_tpu module."""
+    """Importing the port and every submodule (the train modules among
+    them) pulls in no jax, flax or dlsg_tpu module."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
@@ -104,6 +104,9 @@ def test_package_imports_no_jax():
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "flax", "jaxlib", "dlsg_tpu"))
         assert not bad, bad
+        for m in ("models.discriminator", "ops.losses", "train.optim", "train.gan_lambda",
+                  "train.schedule", "train.steps"):
+            assert "dlsg_tpu_torch." + m in sys.modules, m
         print("imported", len([n for n in sys.modules if n.startswith("dlsg_tpu_torch")]))
         """
     )
