@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive dlsg_tpu_torch's beam-5 serving path and its GAN train step on one
-NVIDIA GPU.
+"""Drive dlsg_tpu_torch's beam-5 serving path, its GAN train step and its
+trainer on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -41,18 +41,37 @@ one JSON line per phase:
    mixing weights fixed, must give the same Adam first moments, at fp32 and
    at bf16 compute (its own line, `train_card_vs_cpu`). It also records whether `torch.mm(..., out_dtype=)`
    carries a gradient (ops/linear.py's `_MatmulF32` exists for that);
-6. the `kernels` line (times, bounds, launches), the nvidia-smi line, and as
-   the last line `{"ok": true, "device": {...}}`.
+6. trainer: `RunGAN` at MSR-VTT widths (bf16 compute, the fused vocab head
+   on, 10 000 words, 128 synthetic videos with 2 captions each: 2 GAN steps
+   of batch 128 and 2 beam-5 evals of the 128 clips an epoch, checkpoints
+   on) trains epoch 0; a second RunGAN on the same results resumes from the
+   latest checkpoint, must hold its parameters, Adam state, step counters and
+   lambda state bitwise, and trains epoch 1. It checks the logged losses
+   (finite, every tag), the step counters (G 2 then 4, D 10 then 20), both
+   epoch checkpoints, all seven finite scores per eval, the vocab head
+   launched on the tensor-core tiles on every beam step of every eval decode
+   (between 1 and max_words launches per eval) and no lstm_scan launch; then
+   the final generator's eval decode against the same decode with the plain
+   vocab head (token agreement >= 99%), and `cli train --synthetic` at tiny
+   dims on the card. Its line gives the epoch seconds, the Stopwatch spans,
+   decode against scoring seconds per eval, the scorer's seconds for 128
+   26-word captions (where Python METEOR is slowest), save_train /
+   restore_train seconds and bytes, and peak memory;
+7. the `kernels` line (times, bounds, launches on the serving path and on the
+   trainer path), the nvidia-smi line, and as the last line
+   `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -62,6 +81,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from dlsg_tpu_torch import checkpoint as ckpt_mod  # noqa: E402
+from dlsg_tpu_torch import cli  # noqa: E402
 from dlsg_tpu_torch import kernels  # noqa: E402
 from dlsg_tpu_torch.config import DLSGConfig, apply_dataset_overrides  # noqa: E402
 from dlsg_tpu_torch.evaluation import decode as decode_mod  # noqa: E402
@@ -73,6 +94,9 @@ from dlsg_tpu_torch.kernels.vocab_head import ROUTE_LAUNCHES  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_plan, vocab_head_topk  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk_plain  # noqa: E402
 from dlsg_tpu_torch.config import tiny_test_config  # noqa: E402
+from dlsg_tpu_torch.data.loader import eval_batches  # noqa: E402
+from dlsg_tpu_torch.data.synthetic import SyntheticDataset, make_vocab  # noqa: E402
+from dlsg_tpu_torch.metrics.scorer import score_captions  # noqa: E402
 from dlsg_tpu_torch.models.discriminator import DiscV2  # noqa: E402
 from dlsg_tpu_torch.models.generator import CapGnnModel  # noqa: E402
 from dlsg_tpu_torch.ops import linear as linear_mod  # noqa: E402
@@ -81,6 +105,7 @@ from dlsg_tpu_torch.ops.linear import matmul_f32  # noqa: E402
 from dlsg_tpu_torch.serve import Captioner  # noqa: E402
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state  # noqa: E402
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer  # noqa: E402
+from dlsg_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from dlsg_tpu_torch.train.steps import make_ce_train_step, make_gan_train_step  # noqa: E402
 from dlsg_tpu_torch.vocab import Vocabulary  # noqa: E402
 
@@ -116,6 +141,23 @@ MOMENT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # 1.1e-4 of a moment's max-abs at fp32 (one tensor of 117, H100 80GB HBM3).
 # At 1e-7 the moments compare the gradients, lost ones included
 MOMENT_CHECK_LR = 1e-7
+# the trainer phase: 128 videos x 2 captions = 2 GAN steps of batch 128 an
+# epoch; saving_schedule(epoch, 2) evaluates after steps 1 and 2
+TRAINER_VIDEOS = 128
+SCORE_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr")
+TRAINER_TAGS = ("Loss/cap_loss", "Loss/G_v_loss", "Loss/D_loss_visual",
+                "Loss/wasserstein_visual", "parameter/gan_lambda")
+# `cli train --synthetic` on the card: tiny dims (tests/test_cli_realdata.py)
+CLI_FLAGS = [
+    "--synthetic", "--synthetic_videos", "8", "--epoch_num", "1", "--no_debug",
+    "--train_batch_size", "4", "--test_batch_size", "4", "--beam_size", "2",
+    "--visual_hidden_size", "32", "--region_projected_size", "32",
+    "--query_hidden_size", "32", "--decode_hidden_size", "32",
+    "--word_size", "16", "--gan_word_size", "16",
+    "--num_proposals", "2", "--num_obj", "3", "--num_topk", "2",
+    "--max_frames", "6", "--max_words", "8",
+    "--a_feature_size", "24", "--m_feature_size", "12", "--region_feature_size", "20",
+]
 
 
 def emit(obj) -> None:
@@ -643,6 +685,199 @@ def phase_train(cfg: DLSGConfig) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def timed_calls(module, name: str, log: list):
+    """Replace `module.name` while the block runs with a wrapper that appends
+    (seconds, result) of each call to `log`."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        log.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _check_resumed(runner, path: str) -> None:
+    """The resumed runner's G/D parameters, Adam state, step counters and
+    lambda state equal the checkpoint's, bitwise."""
+    saved = torch.load(path, map_location=DEVICE, weights_only=True)
+    bad = []
+
+    def same(a, b, name):
+        if not (torch.is_tensor(a) and torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b)):
+            bad.append(name)
+
+    for prefix, state in (("gen", runner.gen_state), ("disc", runner.disc_state)):
+        if state.step != saved[f"{prefix}_step"]:
+            bad.append(f"{prefix}_step")
+        for k, v in state.module.state_dict().items():
+            same(v, saved[f"{prefix}_params"][k], f"{prefix}.{k}")
+        opt = state.optimizer.state_dict()
+        if len(opt["state"]) != len(state.params) or opt["param_groups"] != saved[f"{prefix}_opt"]["param_groups"]:
+            bad.append(f"{prefix}_opt layout")
+        for i, st in opt["state"].items():
+            for k, v in st.items():
+                same(v, saved[f"{prefix}_opt"]["state"][i][k], f"{prefix}_opt.{i}.{k}")
+    for k, v in runner.lambda_state.items():
+        same(v, saved["gan_lambda_state"][k], f"lambda.{k}")
+    if bad:
+        raise AssertionError(f"the resumed trainer differs from its checkpoint: {bad[:8]}")
+
+
+def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int) -> dict:
+    """RunGAN, its resume and `cli train` on the card (module doc, item 6)."""
+    vocab = make_vocab(extra_words=vocab_size - len(make_vocab()))
+    if len(vocab) != vocab_size:
+        raise AssertionError(f"the vocabulary has {len(vocab)} words, want {vocab_size}")
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(cfg, vocab, num_videos=num_videos, captions_per_video=2)
+    data_s = time.perf_counter() - t0
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+    cfg = replace(cfg, result_dir=os.path.join(work.name, "results"))
+    evals, saves, restores, epochs, stopwatch = [], [], [], [], []
+
+    # ---- the main path, with every kernel's launch count read over it ----
+    for lib in kernels.LIBRARIES:
+        lib.launches = 0
+    for route in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[route] = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    real_evaluate = trainer_mod.evaluate
+
+    def counted_evaluate(*args, **kw):
+        k1, tc = VOCAB_LIB.launches, ROUTE_LAUNCHES["tensor_cores"]
+        t = time.perf_counter()
+        out = real_evaluate(*args, **kw)
+        evals.append({"seconds": time.perf_counter() - t, "infer_s": out[3],
+                      "k1_launches": VOCAB_LIB.launches - k1,
+                      "k1_tensor_core_launches": ROUTE_LAUNCHES["tensor_cores"] - tc,
+                      "scores": out[0]})
+        return out
+
+    trainer_mod.evaluate = counted_evaluate
+    runners = []
+    try:
+        with timed_calls(ckpt_mod, "save_train", saves), timed_calls(ckpt_mod, "restore_train", restores):
+            for epoch_num, resume in ((1, None), (2, "latest")):
+                t = time.perf_counter()
+                runner = trainer_mod.RunGAN(
+                    replace(cfg, epoch_num=epoch_num), vocab, ds, ds.eval_view(), ds.references,
+                    is_debug=False, resume_epoch=resume, device=DEVICE,
+                )
+                build_s = time.perf_counter() - t
+                if resume is not None:
+                    if runner.last_epoch != 0:
+                        raise AssertionError(f"resume picked epoch {runner.last_epoch}, want 0")
+                    _check_resumed(runner, os.path.join(cfg.checkpoint_dir, "epoch_0", ckpt_mod.TRAIN_FILE))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                runner.train()
+                torch.cuda.synchronize()
+                epochs.append({"epoch": epoch_num - 1, "seconds": time.perf_counter() - t,
+                               "build_s": build_s,
+                               "steps_g_d": [runner.gen_state.step, runner.disc_state.step]})
+                stopwatch.append({k: {"total_s": runner.stopwatch.totals[k],
+                                      "spans": runner.stopwatch.counts[k]}
+                                  for k in runner.stopwatch.totals})
+                runners.append(runner)
+    finally:
+        trainer_mod.evaluate = real_evaluate
+    launches = {lib.name: lib.launches for lib in kernels.LIBRARIES}
+    launches.update({f"vocab_head[{r}]": n for r, n in ROUTE_LAUNCHES.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- checks ----
+    steps_per_epoch = len(ds) // cfg.train_batch_size
+    want_steps = [[steps_per_epoch * e, steps_per_epoch * e * cfg.num_D_visual] for e in (1, 2)]
+    if [e["steps_g_d"] for e in epochs] != want_steps:
+        raise AssertionError(f"step counters {[e['steps_g_d'] for e in epochs]}, want {want_steps}")
+    for e in (0, 1):
+        if not os.path.exists(os.path.join(cfg.checkpoint_dir, f"epoch_{e}", ckpt_mod.TRAIN_FILE)):
+            raise AssertionError(f"no epoch_{e} checkpoint")
+    log_path = os.path.join(cfg.result_dir, runners[-1].base_name, "logs", "scalars.jsonl")
+    with open(log_path) as f:
+        scalars = [json.loads(ln) for ln in f]
+    tags = {s["tag"] for s in scalars}
+    if not set(TRAINER_TAGS) <= tags or not any(t.startswith("results/") for t in tags):
+        raise AssertionError(f"scalars.jsonl lacks tags: {sorted(tags)}")
+    if not all(np.isfinite(s["value"]) for s in scalars):
+        raise AssertionError("a logged scalar is not finite")
+    if len(evals) != 4:
+        raise AssertionError(f"{len(evals)} evals, want 2 an epoch")
+    for ev in evals:
+        if set(ev["scores"]) != set(SCORE_KEYS) or not all(np.isfinite(list(ev["scores"].values()))):
+            raise AssertionError(f"eval scores: {ev['scores']}")
+        if not 1 <= ev["k1_launches"] <= cfg.max_words or ev["k1_tensor_core_launches"] != ev["k1_launches"]:
+            raise AssertionError(f"vocab_head launches of an eval decode: {ev}")
+    if launches["lstm_scan"] != 0:
+        raise AssertionError(f"the trainer launched lstm_scan: {launches}")
+    if launches["vocab_head"] != sum(ev["k1_launches"] for ev in evals):
+        raise AssertionError(f"vocab_head launched outside the eval decodes: {launches}")
+
+    # ---- the final generator's eval decode against the plain vocab head ----
+    final = runners[-1]
+    decode = make_decode_fn(final.gen_model, final.cfg, beam_size=final.cfg.beam_size, device=DEVICE)
+    batch = next(eval_batches(ds.eval_view(), final.cfg.test_batch_size))
+    fr = torch.from_numpy(batch["frames"]).to(DEVICE)
+    rg = torch.from_numpy(batch["regions"]).to(DEVICE)
+    ids = decode(fr, rg)
+    agree = agreement(ids, decode_plain(decode, fr, rg, lstm=False))
+    if agree < TOKEN_AGREEMENT_MIN:
+        raise AssertionError(f"trainer eval decode agreement with the plain vocab head {agree} < 0.99")
+    # the scorer's cost where Python METEOR is slowest: 26-word captions of
+    # the references' own words (many candidate matches), one per clip
+    rng = np.random.default_rng(SEED)
+    words = sorted({w for caps in ds.references.values() for c in caps for w in c.split()})
+    babble = {vid: " ".join(rng.choice(words, size=cfg.max_words)) for vid in ds.references}
+    t = time.perf_counter()
+    babble_scores = score_captions(ds.references, babble)
+    babble_s = time.perf_counter() - t
+    if not all(np.isfinite(list(babble_scores.values()))):
+        raise AssertionError(f"scores of the 26-word captions: {babble_scores}")
+    size = os.path.getsize(os.path.join(cfg.checkpoint_dir, "epoch_0", ckpt_mod.TRAIN_FILE))
+    best = sorted(d for d in os.listdir(cfg.checkpoint_dir) if d.startswith("best_"))
+    del runners, final, decode
+    torch.cuda.empty_cache()
+
+    # ---- `cli train` on the card, the device left at its default ----
+    t = time.perf_counter()
+    rc = cli.main(["train", "--result_dir", os.path.join(work.name, "cli")] + CLI_FLAGS)
+    cli_s = time.perf_counter() - t
+    if rc != 0 or not os.path.exists(os.path.join(work.name, "cli", "checkpoints", "epoch_0")):
+        raise AssertionError(f"cli train returned {rc} or wrote no checkpoint")
+    work.cleanup()
+
+    result = {
+        "phase": "trainer",
+        "config": "RunGAN, msr-vtt, bf16, fused vocab head, use_pallas_lstm off",
+        "vocab": vocab_size, "videos": num_videos, "captions": len(ds),
+        "batch": cfg.train_batch_size, "beam": cfg.beam_size, "synthetic_data_s": data_s,
+        "epochs": epochs, "stopwatch": stopwatch,
+        "evals": [{k: v for k, v in ev.items() if k != "scores"}
+                  | {"scoring_s": ev["seconds"] - ev["infer_s"], "CIDEr": ev["scores"]["CIDEr"],
+                     "METEOR": ev["scores"]["METEOR"]} for ev in evals],
+        "scoring_s_26_word_captions": babble_s, "scoring_26_word_captions_METEOR":
+            babble_scores["METEOR"],
+        "save_train_s": [s for s, _ in saves], "checkpoint_bytes": size,
+        "restore_train_s": [s for s, _ in restores], "best_models": best,
+        "launches": launches, "peak_mem_gb": peak_gb,
+        "token_agreement_vs_plain_vocab_head_bf16": agree,
+        "resume": "exact (parameters, Adam state, steps, lambda state)",
+        "cli_train_s": cli_s,
+    }
+    emit(result)
+    return result
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -660,8 +895,15 @@ def main() -> None:
     launches = phase_serving(cfg)["launches"]
     torch.cuda.empty_cache()
     phase_train(apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16")))
+    torch.cuda.empty_cache()
+    trainer_launches = phase_trainer(
+        apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
+                                           use_fused_vocab_head="on", epoch_num=1)),
+        VOCAB, TRAINER_VIDEOS,
+    )["launches"]
     for key, entry in checks:
         entry["launches"] = launches[key]
+        entry["launches_trainer"] = trainer_launches[key]
     emit({"kernels": [entry for _, entry in checks]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})

@@ -7,8 +7,9 @@ first use and bound with ctypes).
 
 Subpackages
 -----------
-- ``config``     : DLSGConfig (same fields and defaults as dlsg_tpu.config)
-- ``vocab``      : Vocabulary and special-token ids
+- ``config``     : DLSGConfig (same fields and defaults as dlsg_tpu.config),
+                   derived paths, parse_opt
+- ``vocab``      : Vocabulary, special-token ids, reference-pkl import
 - ``bundle``     : single-file serving bundles (format shared with dlsg_tpu)
 - ``weights``    : flax parameter tree <-> torch state_dict
 - ``ops``        : LSTM primitives, exact top-k, beam search, Dense/LayerNorm,
@@ -16,9 +17,17 @@ Subpackages
 - ``kernels``    : CUDA kernels (lstm_scan, vocab_head) with plain versions
 - ``models``     : CapGnnModel (encoders, decoder, shared layers), DiscV2
 - ``train``      : Adam train states, schedules, the GAN-lambda machine, the
-                   CE and WGAN-GP train steps
-- ``evaluation`` : greedy and beam decode functions
+                   CE and WGAN-GP train steps, the RunGAN trainer
+- ``data``       : HDF5/pickle readers, batchers, host -> device prefetch,
+                   synthetic data
+- ``metrics``    : PTB tokenizer, BLEU, METEOR, ROUGE-L, CIDEr, COCOScorer
+- ``evaluation`` : greedy and beam decode functions, evaluate() with
+                   scoring, best-result tracking
+- ``checkpoint`` : best-model and per-epoch training checkpoints, resume
+- ``utils``      : scalar logging, Stopwatch and torch.profiler traces,
+                   attention heatmaps
 - ``serve``      : load-once Captioner (bucketed batches, warmup)
+- ``cli``        : ``python -m dlsg_tpu_torch.cli train|evaluate``
 
 Entry points run on `cuda` unless the caller passes ``device="cpu"``.
 """

@@ -1,14 +1,17 @@
 """Configuration: the port's own copy of `dlsg_tpu.config.DLSGConfig`.
 
 Field names and defaults are identical to the JAX package's, so the config
-JSON inside a serving bundle loads into either package. The two dtype
-properties return torch dtypes instead of jnp ones. Fields that select
-JAX-only machinery (meshes, remat, the training RNG) are kept so a bundle
-round-trips, and are ignored by this package.
+JSON inside a serving bundle loads into either package, and so are the
+derived data paths, `checkpoint_dir`, `base_name()` and the CLI flags of
+`parse_opt`. The two dtype properties return torch dtypes instead of jnp
+ones. Fields that select JAX-only machinery (meshes, remat, the training RNG)
+are kept so a bundle round-trips, and are ignored by this package.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import os
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
@@ -172,6 +175,67 @@ class DLSGConfig:
             raise ValueError("choose one dataset from msvd|msr-vtt")
         return os.path.join(self.data_dir, sub[self.dataset])
 
+    # Derived data-file paths (opt.py:116-134)
+    @property
+    def vocab_pkl_path(self) -> str:
+        return os.path.join(self.feat_dir, f"{self.dataset}_vocab.pkl")
+
+    @property
+    def train_caption_pkl_path(self) -> str:
+        return os.path.join(self.feat_dir, f"{self.dataset}_captions_train.pkl")
+
+    @property
+    def val_caption_pkl_path(self) -> str:
+        return os.path.join(self.feat_dir, f"{self.dataset}_captions_val.pkl")
+
+    @property
+    def test_caption_pkl_path(self) -> str:
+        return os.path.join(self.feat_dir, f"{self.dataset}_captions_test.pkl")
+
+    @property
+    def feature_h5_path(self) -> str:
+        return os.path.join(self.feat_dir, f"{self.dataset}_features.h5")
+
+    @property
+    def region_feature_h5_path(self) -> str:
+        name = {"msvd": "msvd_region_feature.h5", "msr-vtt": "msrvtt_region_feature.h5"}
+        return os.path.join(self.feat_dir, name[self.dataset])
+
+    @property
+    def glove_path(self) -> str:
+        """Resolved GloVe text path (layer.py:356-360 fallback chain)."""
+        return self.glove_txt_path or os.path.join(self.data_dir, "glove.42B.300d.txt")
+
+    @property
+    def glove_cache_npy_path(self) -> str:
+        """Per-dataset .npy cache (layer.py:353)."""
+        return os.path.join(self.data_dir, f"{self.dataset}_glove.npy")
+
+    @property
+    def val_reference_txt_path(self) -> str:
+        return os.path.join(self.feat_dir, f"{self.dataset}_val_references.txt")
+
+    @property
+    def test_reference_txt_path(self) -> str:
+        return os.path.join(self.feat_dir, f"{self.dataset}_test_references.txt")
+
+    @property
+    def test_prediction_txt_path(self) -> str:
+        return os.path.join(self.result_dir, f"{self.dataset}_test_predictions.txt")
+
+    @property
+    def checkpoint_dir(self) -> str:
+        return os.path.join(self.result_dir, "checkpoints")
+
+    def base_name(self) -> str:
+        """Experiment name, mirroring `run_gun.py:413-431`."""
+        name = f"{self.dataset}_{self.ss_factor}_GNN_{self.num_obj}_{self.num_proposals}"
+        if self.use_psl_loss:
+            name += "_use_psl_loss"
+        if self.use_visual_gan:
+            name += f"_visual_{self.lambda_D_visual}_{self.num_D_visual}"
+        return name
+
 
 def apply_dataset_overrides(cfg: DLSGConfig) -> DLSGConfig:
     """Per-dataset overrides of the reference trainers (`run_gun.py:31-40`):
@@ -207,3 +271,29 @@ def tiny_test_config(**overrides) -> DLSGConfig:
     )
     base.update(overrides)
     return DLSGConfig(**base)
+
+
+def _add_args(parser: argparse.ArgumentParser) -> None:
+    """Register every scalar config field as a CLI flag with the dataclass
+    default; the id ranges take two ints (`--msvd_test_range 1300 1970`)."""
+    for f in dataclasses.fields(DLSGConfig):
+        if f.type in ("str", "int", "float"):
+            parser.add_argument(f"--{f.name}", type={"str": str, "int": int, "float": float}[f.type],
+                                default=f.default)
+        elif f.type == "bool":
+            parser.add_argument(
+                f"--{f.name}", type=lambda s: s.lower() in ("1", "true", "yes"), default=f.default
+            )
+        elif f.type.startswith("Tuple[int"):
+            parser.add_argument(f"--{f.name}", type=int, nargs=2, default=f.default)
+
+
+def parse_opt(argv: Optional[list] = None, apply_overrides: bool = True) -> DLSGConfig:
+    """CLI entry mirroring `utils/opt.py:parse_opt` (same flag names / defaults)."""
+    parser = argparse.ArgumentParser(description="D-LSG video captioning (PyTorch)")
+    _add_args(parser)
+    ns = parser.parse_args(argv)
+    cfg = DLSGConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in vars(ns).items()})
+    if apply_overrides:
+        cfg = apply_dataset_overrides(cfg)
+    return cfg

@@ -3,8 +3,8 @@
 CapGnnModel, with the fused vocab-head kernel behind
 `use_fused_vocab_head`.
 
-Scoring (`evaluate()`), the two-pass decode and mesh-sharded decode are not
-ported yet.
+Scoring is `evaluation/evaluate.py::evaluate`. The two-pass decode and
+mesh-sharded decode are not ported yet.
 """
 
 from __future__ import annotations

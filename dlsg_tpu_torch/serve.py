@@ -3,12 +3,13 @@
 Load the model once, then caption pre-extracted feature batches:
 
     captioner = Captioner.from_bundle("model.dlsg.npz")        # on cuda
+    captioner = Captioner.from_checkpoint(cfg, vocab)          # best_CIDEr
     sentences = captioner.caption(frames, regions)             # beam search
     sentences = captioner.caption(frames, regions, greedy=True)
 
-Requests of any size are padded to a power-of-two bucket. Loading from an
-orbax checkpoint directory (`from_checkpoint`) is not ported yet: export a
-bundle with the JAX package's `dlsg-tpu export` instead.
+Requests of any size are padded to a power-of-two bucket. `from_checkpoint`
+reads this package's checkpoints (`checkpoint.py`); a model trained by the
+JAX package comes over as a bundle (its `dlsg-tpu export`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import numpy as np
 import torch
 
 from dlsg_tpu_torch.bundle import load_bundle
+from dlsg_tpu_torch.checkpoint import restore_model
 from dlsg_tpu_torch.config import DLSGConfig
+from dlsg_tpu_torch.data.prefetch import stage_cast
 from dlsg_tpu_torch.device import DeviceLike, resolve_device
 from dlsg_tpu_torch.evaluation.decode import make_decode_fn
 from dlsg_tpu_torch.models.generator import CapGnnModel
@@ -33,13 +36,6 @@ def jsonable_id(vid):
     integer ids stay integers, anything else becomes a string."""
     v = vid.item() if hasattr(vid, "item") else vid
     return int(v) if isinstance(v, (int, np.integer)) else str(v)
-
-
-def stage_cast(array: np.ndarray, stage_dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """The `input_stage_dtype` policy: a host float batch as a tensor, cast on
-    the host (before the copy to the device) when a stage dtype is set."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    return t if stage_dtype is None else t.to(stage_dtype)
 
 
 class Captioner:
@@ -80,6 +76,21 @@ class Captioner:
         device: DeviceLike = None,
     ) -> "Captioner":
         return cls(cfg, vocab, params, fast=fast, device=device)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        cfg: DLSGConfig,
+        vocab: Vocabulary,
+        ckpt_dir: Optional[str] = None,
+        name: str = "best_CIDEr",
+        device: DeviceLike = None,
+    ) -> "Captioner":
+        """Load the generator a trainer saved as `name` (best_CIDEr,
+        best_Bleu_4) under `ckpt_dir` (default cfg.checkpoint_dir)."""
+        device = resolve_device(device)
+        params = restore_model(ckpt_dir or cfg.checkpoint_dir, name, device=device)
+        return cls(cfg, vocab, params, device=device)
 
     @classmethod
     def from_bundle(cls, path: str, fast: bool = False, device: DeviceLike = None) -> "Captioner":

@@ -22,6 +22,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dlsg_tpu_torch.device import DeviceLike, resolve_device
+
 STABLE, DECREASE, INCREASE = 0, 1, 2
 
 LambdaState = Dict[str, torch.Tensor]
@@ -89,9 +91,11 @@ def init_lambda_state(
     window: int = 200,
     counter: int = 500,
     low_gan_lambda: float = 0.006,
-    device="cpu",
+    device: DeviceLike = None,
 ) -> LambdaState:
-    """The device-side lambda state: a dict of tensors on `device`."""
+    """The device-side lambda state: a dict of tensors on `device` (default
+    `cuda`; pass ``device="cpu"`` for the CPU)."""
+    device = resolve_device(device)
 
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)

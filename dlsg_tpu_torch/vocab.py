@@ -1,11 +1,15 @@
 """Vocabulary: the port's own copy of `dlsg_tpu.vocab`.
 
 Special-token layout `<pad>=0, <start>=1, <end>=2, <unk>=3`, which the
-decoder, beam search and detokenization rely on.
+decoder, beam search and detokenization rely on. Loads the reference's
+pickled vocabularies (`load_reference_pkl`) and the JSON form of either
+package (`save_json` / `load_json`).
 """
 
 from __future__ import annotations
 
+import json
+import pickle
 from typing import Iterable, List
 
 PAD, START, END, UNK = "<pad>", "<start>", "<end>", "<unk>"
@@ -49,6 +53,35 @@ class Vocabulary:
         v.word2idx = {w: i for i, w in enumerate(v.idx2word)}
         v.nwords = len(v.idx2word)
         return v
+
+    def save_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.idx2word, f)
+
+    @classmethod
+    def load_json(cls, path: str) -> "Vocabulary":
+        with open(path) as f:
+            return cls.from_idx2word(json.load(f))
+
+    @classmethod
+    def load_reference_pkl(cls, path: str) -> "Vocabulary":
+        """Import a pickled Vocabulary of the reference codebase (or of the
+        JAX package): any pickled class named `Vocabulary`, whatever its
+        module path (`utils.utils.Vocabulary` in the reference,
+        train_debug.py:25-26), is read as this class."""
+        this = cls
+
+        class _Remap(pickle.Unpickler):
+            def find_class(self, module, name):
+                if name == "Vocabulary":
+                    return this
+                return super().find_class(module, name)
+
+        with open(path, "rb") as f:
+            obj = _Remap(f).load()
+        if not isinstance(obj, cls):
+            raise TypeError(f"unsupported vocab pickle payload: {type(obj)!r}")
+        return obj
 
     def decode_tokens(self, tokens) -> str:
         """Token ids -> caption string, truncating at the first <end>

@@ -27,6 +27,7 @@ from dlsg_tpu_torch.evaluation.decode import make_decode_fn
 from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.serve import Captioner
 from dlsg_tpu_torch.weights import params_from_jax
+from test_torch_train_steps import one_torch_thread  # noqa: F401  (autouse)
 
 V = 50
 B = 4

@@ -18,6 +18,7 @@ from dlsg_tpu_torch.config import tiny_test_config
 from dlsg_tpu_torch.models import discriminator as td
 from dlsg_tpu_torch.models import layers as tlayers
 from dlsg_tpu_torch.weights import params_from_jax, params_to_jax
+from test_torch_train_steps import one_torch_thread  # noqa: F401  (autouse)
 
 FWD_ATOL = 1e-5
 GRAD_ATOL = 1e-4

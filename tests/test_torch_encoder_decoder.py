@@ -19,6 +19,7 @@ from dlsg_tpu_torch.config import tiny_test_config
 from dlsg_tpu_torch.models.decoder import expand_pre_to_beams
 from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.weights import params_from_jax
+from test_torch_train_steps import one_torch_thread  # noqa: F401  (autouse)
 
 V = 50
 B = 4

@@ -11,7 +11,8 @@ atol 1e-4 on LSTM states and top-k values; vocab ids equal except near-ties
 within 1e-4 of each other. The train path runs no kernel; its card-only
 tests hold matmul_f32's gradients (bf16 operands, cast back to bf16: one
 bf16 ulp, rtol 2^-7) and one tiny GAN step's Adam moments (fp32, 1e-4 of
-each tensor's max-abs) against the CPU."""
+each tensor's max-abs) against the CPU. The trainer's prefetcher (pinned
+host slots, side-stream copies) must deliver every batch bitwise."""
 
 import numpy as np
 import pytest
@@ -240,3 +241,40 @@ def test_tiny_gan_step_on_card_matches_cpu(card, monkeypatch):
         scale = float(w.abs().max())
         assert (scale == 0) == (float(got[name].abs().max()) == 0), name
         torch.testing.assert_close(got[name], w, rtol=0, atol=1e-4 * scale, msg=name)
+
+
+def test_prefetch_to_device_on_the_card(card):
+    """More batches than pinned slots, each consumed by a long kernel chain
+    on the default stream while the next copies run on the side stream:
+    every batch arrives whole, in order, cast where asked, and its tensors
+    stay valid after the generator moves on."""
+    from dlsg_tpu_torch.data.prefetch import BUFFER_SIZE, prefetch_to_device
+
+    def host(n):
+        rng = np.random.default_rng(5)
+        for i in range(n):
+            yield {
+                "frames": rng.normal(size=(64, 26, 512)).astype(np.float32),
+                "regions": rng.normal(size=(64, 26, 8, 256)).astype(np.float32),
+                "captions": rng.integers(0, 50, size=(64, 26)).astype(np.int32),
+                "lengths": np.full(64, 26, np.int32),
+                "video_ids": np.arange(64, dtype=np.int32) + 64 * i,
+            }
+
+    n = 3 * BUFFER_SIZE + 1
+    want = list(host(n))
+    seen, kept = 0, []
+    for got, ref in zip(prefetch_to_device(host(n), card, stage_dtype=torch.bfloat16), want):
+        a = got["frames"].float()
+        for _ in range(20):  # keep the default stream busy
+            a = torch.tanh(a @ a.transpose(1, 2)[:, :, :512] * 1e-3)
+        assert got["regions"].dtype == torch.bfloat16 and got["captions"].dtype == torch.int32
+        torch.testing.assert_close(got["regions"].cpu(), torch.from_numpy(ref["regions"]).bfloat16())
+        np.testing.assert_array_equal(got["captions"].cpu().numpy(), ref["captions"])
+        np.testing.assert_array_equal(got["video_ids"], ref["video_ids"])
+        kept.append((got["frames"], ref["frames"]))
+        seen += 1
+    assert seen == n
+    torch.cuda.synchronize()
+    for dev, ref in kept:  # nothing was overwritten by a later batch
+        torch.testing.assert_close(dev.cpu(), torch.from_numpy(ref).bfloat16())

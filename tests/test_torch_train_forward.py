@@ -25,6 +25,7 @@ from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.ops import linear
 from dlsg_tpu_torch.ops.losses import masked_cross_entropy
 from dlsg_tpu_torch.weights import params_from_jax
+from test_torch_train_steps import one_torch_thread  # noqa: F401  (autouse)
 
 V = 40
 B = 4

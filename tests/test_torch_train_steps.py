@@ -53,6 +53,19 @@ KEY = 2  # JAX PRNGKey(KEY) and the port's step key
 METRICS = ("cap_loss", "loss_G", "loss_D", "wasserstein", "grad_penalty", "gan_lambda")
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread per test. The suite runs several test
+    processes on the CPU at once, and torch's default of one thread per core
+    in each of them oversubscribes the cores many times over: a tiny GAN step
+    then takes tens of times longer. The port's test modules that run models
+    import this fixture, which applies it to their tests too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _identity(self, inputs, deterministic=None, rng=None):
     return inputs
 
@@ -138,7 +151,7 @@ def run_gan_case(single_fwd: bool):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(linear, "dropout", lambda x, rate, rng: x)
         gs, ds, _, tm = tstep(
-            gs, ds, tgl.init_lambda_state(0.01), batch, KEY, 1.0, eps_gp=torch.from_numpy(_eps_gp(cfg))
+            gs, ds, tgl.init_lambda_state(0.01, device="cpu"), batch, KEY, 1.0, eps_gp=torch.from_numpy(_eps_gp(cfg))
         )
     got = {
         "g_mu": gs.first_moments(), "g_params": tg.state_dict(),
@@ -229,7 +242,7 @@ def _cap_losses():
 
 
 def test_lambda_update_matches_jax():
-    jstate, tstate = jgl.init_lambda_state(0.01), tgl.init_lambda_state(0.01)
+    jstate, tstate = jgl.init_lambda_state(0.01), tgl.init_lambda_state(0.01, device="cpu")
     upd = jax.jit(jgl.lambda_update)
     seen = set()
     for n, loss in enumerate(_cap_losses()):

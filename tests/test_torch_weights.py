@@ -93,8 +93,9 @@ def test_vocab_matches_jax():
 
 
 def test_package_imports_no_jax():
-    """Importing the port and every submodule (the train modules among
-    them) pulls in no jax, flax or dlsg_tpu module."""
+    """Importing the port and every submodule (the train, trainer, data,
+    metrics and CLI modules among them) pulls in no jax, flax or dlsg_tpu
+    module."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
@@ -105,7 +106,9 @@ def test_package_imports_no_jax():
                      if n.split(".")[0] in ("jax", "flax", "jaxlib", "dlsg_tpu"))
         assert not bad, bad
         for m in ("models.discriminator", "ops.losses", "train.optim", "train.gan_lambda",
-                  "train.schedule", "train.steps"):
+                  "train.schedule", "train.steps", "train.trainer", "checkpoint", "cli",
+                  "data.loader", "data.datasets", "data.prefetch", "evaluation.evaluate",
+                  "metrics.scorer", "metrics.meteor", "utils.profiler"):
             assert "dlsg_tpu_torch." + m in sys.modules, m
         print("imported", len([n for n in sys.modules if n.startswith("dlsg_tpu_torch")]))
         """
@@ -114,14 +117,18 @@ def test_package_imports_no_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 30
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
-    """Without a card and without device='cpu' the entry points raise, naming
-    the option; they never carry on on the CPU."""
+    """Without a card and without device='cpu' (`--device cpu`) the entry
+    points raise, naming the option; they never carry on on the CPU."""
+    from dlsg_tpu_torch.cli import main
+    from dlsg_tpu_torch.data.synthetic import SyntheticDataset, make_vocab
     from dlsg_tpu_torch.evaluation.decode import make_decode_fn
     from dlsg_tpu_torch.serve import Captioner
+    from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
+    from dlsg_tpu_torch.train.trainer import RunGAN
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_test_config()
@@ -133,6 +140,15 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     model = CapGnnModel(cfg, V, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_decode_fn(model, cfg, beam_size=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lambda_state(0.01)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Captioner.from_checkpoint(cfg, vocab, ckpt_dir="no_such_dir")
+    ds = SyntheticDataset(cfg, make_vocab(), num_videos=2, captions_per_video=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RunGAN(cfg, make_vocab(), ds, ds.eval_view(), ds.references)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["train", "--synthetic", "--synthetic_videos", "2", "--epoch_num", "1"])
 
 
 def test_port_bundle_loads_in_jax(tmp_path):
