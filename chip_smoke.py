@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Drive dlsg_tpu_torch's beam-5 serving path, its GAN train step and its
-trainer on one NVIDIA GPU.
+"""Drive dlsg_tpu_torch's beam-5 serving path (the Captioner, the two-pass
+decode, the HTTP server, `cli serve`/`export`), its GAN train step, its
+trainer and its C++ scorer on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It needs a CUDA device and nvcc, builds the
-kernels from `dlsg_tpu_torch/csrc/` into `build/dlsg_tpu_torch/`, and prints
-one JSON line per phase:
+Run from the root of a checkout. It needs a CUDA device, nvcc and g++,
+builds the kernels from `dlsg_tpu_torch/csrc/` and the scorer library from
+`dlsg_tpu_torch/native/` into `build/dlsg_tpu_torch/`, and prints one JSON
+line per phase:
 
 1. device: the card's name, count and nvidia-smi power limit;
-2. build: seconds to build every kernel (one nvcc per source, in parallel),
-   ptxas's registers per kernel, and the tensor-core (HMMA) instructions
-   `cuobjdump` finds in each library;
+2. build: seconds to build every kernel (one nvcc per source, in parallel,
+   with g++ building the scorer library beside them), ptxas's registers per
+   kernel, and the tensor-core (HMMA) instructions `cuobjdump` finds in each
+   library;
 3. kernel checks: each kernel against its plain PyTorch version at the
    shapes the serving path gives it (MSR-VTT widths, batch 128, beam 5); the
    vocab head once per tile form, bf16 w (tensor cores, the serving path)
@@ -28,6 +31,23 @@ one JSON line per phase:
    below the plain decode's agreement with itself under a 1e-6 input
    perturbation: random weights give near-tied beams, and bf16 rounding
    spreads the LSTM kernel's ulp-sized differences into different tokens;
+4b. two_pass: the same weights and config with decode_two_pass_t1 = 8 and
+   the default bucket (32 rows), batch 128, in three regimes: the random
+   weights (every row runs to 26 tokens: pass 2 re-decodes the whole
+   batch), <end>'s bias raised until 25-75% of the rows finish within t1
+   (more rows unfinished than the bucket: the whole batch again), and until
+   78-95% do (the compacted bucket). Each gives the single-pass and
+   two-pass decode ms (median of 7 CUDA-event timings), beam steps and
+   launches; the rows pass 1 finished must equal the single pass's ids
+   bitwise at bf16 and at fp32, the re-decoded rows agree >= 99% at fp32,
+   and at bf16 the agreement is held to the serving phase's perturbation
+   rule;
+4c. server: CaptionServer over the warmed serving Captioner on 127.0.0.1 in
+   a thread: an .npz request of 32 clips (~253 MB), a JSON request of 2 and
+   a greedy .npz request of 8, whose captions must equal caption()'s on the
+   same arrays, both kernels launched for each beam request; a malformed
+   body gets a 400, /healthz names the card, /metrics counts it all; then
+   the request's latency against caption() alone;
 5. train: the WGAN-GP train step of CapGnnModel + DiscV2 at MSR-VTT widths
    (bf16 compute, the plain LSTM recurrence under autograd as in the JAX
    train config, 10 000 words, batch 128, seeded random weights): one
@@ -56,23 +76,42 @@ one JSON line per phase:
    dims on the card. Its line gives the epoch seconds, the Stopwatch spans,
    decode against scoring seconds per eval, the scorer's seconds for 128
    26-word captions (where Python METEOR is slowest), save_train /
-   restore_train seconds and bytes, and peak memory;
-7. the `kernels` line (times, bounds, launches on the serving path and on the
-   trainer path), the nvidia-smi line, and as the last line
+   restore_train seconds and bytes, and peak memory. Its evals score
+   through the C++ tokenizer and METEOR aligner (the line counts the pairs
+   aligned there);
+6b. scorer: the 128 26-word captions scored through the C++ path and the
+   Python path: all seven scores equal; the seconds of each and of the
+   library's build;
+6c. cli_serve: `cli export --allow_random_params --synthetic`, `cli serve
+   --bundle --features --output` (its lines must equal caption()'s) and
+   `cli evaluate --torch_checkpoint` of a reference-schema .pt written here,
+   at tiny dims on the card with both kernel switches on;
+7. the `kernels` line (times, bounds, launches on each path: serving,
+   two_pass, server, train, trainer, cli_serve), the nvidia-smi line, and
+   as the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
+
+Not driven here: the loader's worker pool (`data/parallel_loader.py`, behind
+`loader_workers > 0`). Only the HDF5 datasets have workers, as in the JAX
+package, and the card's machine has no h5py; the CPU tests hold it
+(tests/test_torch_parallel_loader.py).
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from dataclasses import replace
 from pathlib import Path
 
@@ -84,7 +123,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from dlsg_tpu_torch import checkpoint as ckpt_mod  # noqa: E402
 from dlsg_tpu_torch import cli  # noqa: E402
 from dlsg_tpu_torch import kernels  # noqa: E402
-from dlsg_tpu_torch.config import DLSGConfig, apply_dataset_overrides  # noqa: E402
+from dlsg_tpu_torch import native  # noqa: E402
+from dlsg_tpu_torch.config import DLSGConfig, apply_dataset_overrides, parse_opt  # noqa: E402
 from dlsg_tpu_torch.evaluation import decode as decode_mod  # noqa: E402
 from dlsg_tpu_torch.evaluation.decode import make_decode_fn  # noqa: E402
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB  # noqa: E402
@@ -102,12 +142,13 @@ from dlsg_tpu_torch.models.generator import CapGnnModel  # noqa: E402
 from dlsg_tpu_torch.ops import linear as linear_mod  # noqa: E402
 from dlsg_tpu_torch.ops import lstm as lstm_mod  # noqa: E402
 from dlsg_tpu_torch.ops.linear import matmul_f32  # noqa: E402
-from dlsg_tpu_torch.serve import Captioner  # noqa: E402
+from dlsg_tpu_torch.serve import Captioner, jsonable_id  # noqa: E402
+from dlsg_tpu_torch.server import CaptionServer  # noqa: E402
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state  # noqa: E402
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer  # noqa: E402
 from dlsg_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from dlsg_tpu_torch.train.steps import make_ce_train_step, make_gan_train_step  # noqa: E402
-from dlsg_tpu_torch.vocab import Vocabulary  # noqa: E402
+from dlsg_tpu_torch.vocab import END_ID, Vocabulary  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32 = 67e12
@@ -148,8 +189,7 @@ SCORE_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDE
 TRAINER_TAGS = ("Loss/cap_loss", "Loss/G_v_loss", "Loss/D_loss_visual",
                 "Loss/wasserstein_visual", "parameter/gan_lambda")
 # `cli train --synthetic` on the card: tiny dims (tests/test_cli_realdata.py)
-CLI_FLAGS = [
-    "--synthetic", "--synthetic_videos", "8", "--epoch_num", "1", "--no_debug",
+CLI_DIMS = [
     "--train_batch_size", "4", "--test_batch_size", "4", "--beam_size", "2",
     "--visual_hidden_size", "32", "--region_projected_size", "32",
     "--query_hidden_size", "32", "--decode_hidden_size", "32",
@@ -158,6 +198,16 @@ CLI_FLAGS = [
     "--max_frames", "6", "--max_words", "8",
     "--a_feature_size", "24", "--m_feature_size", "12", "--region_feature_size", "20",
 ]
+CLI_FLAGS = ["--synthetic", "--synthetic_videos", "8", "--epoch_num", "1", "--no_debug"] + CLI_DIMS
+# the two-pass phase: pass 1 runs t1 beam steps; each regime is the share of
+# rows whose beams all end within them that <end>'s bias is searched for
+# (None: the random weights as they are)
+TWO_PASS_T1 = 8
+TWO_PASS_REGIMES = (("random", None), ("mixed", (0.25, 0.75)), ("bucket", (0.78, 0.95)))
+# the server phase: one .npz body of this many MSR-VTT clips (~253 MB of fp32
+# features; 64 clips would come close to MAX_BODY_BYTES), a JSON body of 2
+# and a greedy .npz of 8
+SERVER_CLIPS = 32
 
 
 def emit(obj) -> None:
@@ -203,6 +253,19 @@ def time_ms(fn, repeats: int = 10, warmup: int = 2, flush: bool = True) -> float
     return float(np.median(times))
 
 
+def reset_launches() -> None:
+    for lib in kernels.LIBRARIES:
+        lib.launches = 0
+    for route in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[route] = 0
+
+
+def read_launches() -> dict:
+    out = {lib.name: lib.launches for lib in kernels.LIBRARIES}
+    out.update({f"vocab_head[{r}]": n for r, n in ROUTE_LAUNCHES.items()})
+    return out
+
+
 def bound_ms(ops: float, peak_ops: float, nbytes: float):
     """(least milliseconds for the work, "operations" or "bytes")."""
     t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
@@ -241,10 +304,27 @@ def sass_mma_count(path) -> int:
     return sum("HMMA" in ln for ln in out.stdout.splitlines())
 
 
-def phase_build() -> None:
+def phase_build() -> float:
+    """Build the CUDA kernels (one nvcc each) and, beside them, the C++
+    scorer library (g++); returns the scorer's build seconds."""
+    native_build = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native.load()
+        except Exception as e:  # re-raised below, in the main thread
+            native_build["error"] = e
+        native_build["s"] = time.perf_counter() - t
+
+    scorer_build = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    scorer_build.start()
     kernels.build_all()
     seconds = time.perf_counter() - t0
+    scorer_build.join()
+    if "error" in native_build:
+        raise native_build["error"]
     ptxas = {
         lib.name: [ln.strip() for ln in lib.build_log.splitlines()
                    if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -253,7 +333,9 @@ def phase_build() -> None:
     mma = {lib.name: sass_mma_count(lib.path()) for lib in kernels.LIBRARIES}
     if not all(mma.values()):
         raise AssertionError(f"a kernel library has no tensor-core instruction: {mma}")
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "sass_hmma": mma})
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "sass_hmma": mma,
+          "scorer_library_s": native_build["s"], "scorer_library": native.library_path().name})
+    return native_build["s"]
 
 
 def check_lstm_scan(cfg: DLSGConfig) -> dict:
@@ -394,26 +476,27 @@ def device_profile(fn, wall_ms: float, top: int = 8) -> dict:
     }
 
 
-def phase_serving(cfg: DLSGConfig) -> dict:
+def serving_model(cfg: DLSGConfig):
+    """The serving phases' vocabulary and seeded random weights (a state_dict
+    on the host)."""
     vocab = Vocabulary.from_words(f"w{i}" for i in range(VOCAB - 4))
     gen = torch.Generator().manual_seed(SEED)
-    params = CapGnnModel(cfg, len(vocab), generator=gen, device="cpu").state_dict()
+    return vocab, CapGnnModel(cfg, len(vocab), generator=gen, device="cpu").state_dict()
+
+
+def phase_serving(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
     captioner = Captioner.from_params(cfg, vocab, params, device=DEVICE)
     reqs = [features(n, cfg, seed=SEED + n) for n in REQUESTS]
 
     # ---- the main path, with every kernel's launch count read over it ----
-    for lib in kernels.LIBRARIES:
-        lib.launches = 0
-    for route in ROUTE_LAUNCHES:
-        ROUTE_LAUNCHES[route] = 0
+    reset_launches()
     t0 = time.perf_counter()
     n_buckets = captioner.warmup()
     warmup_s = time.perf_counter() - t0
     answers = [captioner.caption(fr, rg) for fr, rg in reqs]
     greedy = captioner.caption(*reqs[0], greedy=True)
     torch.cuda.synchronize()
-    launches = {lib.name: lib.launches for lib in kernels.LIBRARIES}
-    launches.update({f"vocab_head[{r}]": n for r, n in ROUTE_LAUNCHES.items()})
+    launches = read_launches()
 
     for (fr, _), out in zip(reqs, answers):
         if len(out) != fr.shape[0] or not all(isinstance(s, str) for s in out):
@@ -606,8 +689,7 @@ def phase_train(cfg: DLSGConfig) -> dict:
     d0 = [p.detach().clone() for p in D.parameters()]
 
     # ---- the main path, with every kernel's launch count read over it ----
-    for lib in kernels.LIBRARIES:
-        lib.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     metrics, gan_ms = [], []
     for i in range(4):  # one warm-up step, then 3 timed by CUDA events
@@ -649,7 +731,7 @@ def phase_train(cfg: DLSGConfig) -> dict:
         ce_state, m = ce_step(ce_state, batch, TRAIN_KEY, 1.0)
         ce_losses.append(m["cap_loss"])
     ce_losses = [float(x) for x in ce_losses]
-    launches = {lib.name: lib.launches for lib in kernels.LIBRARIES}
+    launches = read_launches()
 
     steps_run = len(metrics) + 1
     if any(launches.values()):
@@ -732,8 +814,10 @@ def _check_resumed(runner, path: str) -> None:
         raise AssertionError(f"the resumed trainer differs from its checkpoint: {bad[:8]}")
 
 
-def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int) -> dict:
-    """RunGAN, its resume and `cli train` on the card (module doc, item 6)."""
+def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int):
+    """RunGAN, its resume and `cli train` on the card (module doc, item 6).
+    Returns the phase's line, and the references with the 26-word captions
+    that the scorer phase scores again."""
     vocab = make_vocab(extra_words=vocab_size - len(make_vocab()))
     if len(vocab) != vocab_size:
         raise AssertionError(f"the vocabulary has {len(vocab)} words, want {vocab_size}")
@@ -742,13 +826,10 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int) -> dict:
     data_s = time.perf_counter() - t0
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
     cfg = replace(cfg, result_dir=os.path.join(work.name, "results"))
-    evals, saves, restores, epochs, stopwatch = [], [], [], [], []
+    evals, saves, restores, epochs, stopwatch, aligned = [], [], [], [], [], []
 
     # ---- the main path, with every kernel's launch count read over it ----
-    for lib in kernels.LIBRARIES:
-        lib.launches = 0
-    for route in ROUTE_LAUNCHES:
-        ROUTE_LAUNCHES[route] = 0
+    reset_launches()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     real_evaluate = trainer_mod.evaluate
@@ -766,7 +847,9 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int) -> dict:
     trainer_mod.evaluate = counted_evaluate
     runners = []
     try:
-        with timed_calls(ckpt_mod, "save_train", saves), timed_calls(ckpt_mod, "restore_train", restores):
+        with timed_calls(ckpt_mod, "save_train", saves), \
+                timed_calls(ckpt_mod, "restore_train", restores), \
+                timed_calls(native, "meteor_stats", aligned):
             for epoch_num, resume in ((1, None), (2, "latest")):
                 t = time.perf_counter()
                 runner = trainer_mod.RunGAN(
@@ -791,8 +874,7 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int) -> dict:
                 runners.append(runner)
     finally:
         trainer_mod.evaluate = real_evaluate
-    launches = {lib.name: lib.launches for lib in kernels.LIBRARIES}
-    launches.update({f"vocab_head[{r}]": n for r, n in ROUTE_LAUNCHES.items()})
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # ---- checks ----
@@ -822,6 +904,10 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int) -> dict:
         raise AssertionError(f"the trainer launched lstm_scan: {launches}")
     if launches["vocab_head"] != sum(ev["k1_launches"] for ev in evals):
         raise AssertionError(f"vocab_head launched outside the eval decodes: {launches}")
+    cpp_pairs = sum(out is not None for _, out in aligned)
+    if not cpp_pairs or cpp_pairs != len(aligned):
+        raise AssertionError(f"the evals aligned {len(aligned) - cpp_pairs} of {len(aligned)} "
+                             "METEOR pairs outside the C++ aligner")
 
     # ---- the final generator's eval decode against the plain vocab head ----
     final = runners[-1]
@@ -865,6 +951,8 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int) -> dict:
         "evals": [{k: v for k, v in ev.items() if k != "scores"}
                   | {"scoring_s": ev["seconds"] - ev["infer_s"], "CIDEr": ev["scores"]["CIDEr"],
                      "METEOR": ev["scores"]["METEOR"]} for ev in evals],
+        "scoring": f"C++ tokenizer and METEOR aligner (dlsg_tpu_torch/native): {cpp_pairs} "
+                   "pairs aligned in the evals",
         "scoring_s_26_word_captions": babble_s, "scoring_26_word_captions_METEOR":
             babble_scores["METEOR"],
         "save_train_s": [s for s, _ in saves], "checkpoint_bytes": size,
@@ -875,12 +963,379 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int) -> dict:
         "cli_train_s": cli_s,
     }
     emit(result)
+    return result, ds.references, babble
+
+# ------------------------------------------------------- the two-pass decode
+
+
+def finished_after(model, cfg: DLSGConfig, fr, rg, steps: int) -> torch.Tensor:
+    """[B] bool: the rows whose beams have all emitted <end> after `steps`
+    beam steps (what the two-pass decode's pass 1 reads)."""
+    beam_feats = decode_mod._make_beam_from_feats(model, cfg, BEAM)
+    with torch.inference_mode():
+        obj, mot = model.encode(fr, rg)
+        return beam_feats(obj, mot, steps)[3]
+
+
+def search_end_bias(model, cfg: DLSGConfig, fr, rg, base: float, lo: float, hi: float):
+    """Raise <end>'s bias in the vocab head (bisection; the share of rows
+    finished within TWO_PASS_T1 steps grows with it) until that share lies
+    in [lo, hi]. Returns (bias added, share)."""
+    bias = model.get_parameter("decoder.step.word_restore.bias")
+    a, b = 0.0, 64.0
+    for _ in range(30):
+        m = (a + b) / 2
+        with torch.no_grad():
+            bias[END_ID] = base + m
+        share = float(finished_after(model, cfg, fr, rg, TWO_PASS_T1).float().mean())
+        if share < lo:
+            a = m
+        elif share > hi:
+            b = m
+        else:
+            return m, share
+    raise AssertionError(f"no <end> bias in [{a}, {b}] finishes {lo}-{hi} of the rows")
+
+
+def phase_two_pass(cfg: DLSGConfig, params: dict) -> dict:
+    """The two-pass decode (decode_two_pass_t1 = 8, default bucket) against
+    the single pass at the serving config, one regime per TWO_PASS_REGIMES
+    entry: each regime's main path is one two-pass decode, with the launch
+    counts read over it."""
+    model = CapGnnModel(cfg, VOCAB, device=DEVICE)
+    model.load_state_dict(params)
+    cfg32 = replace(cfg, compute_dtype="float32")
+    model32 = CapGnnModel(cfg32, VOCAB, device=DEVICE)
+    two_cfg = replace(cfg, decode_two_pass_t1=TWO_PASS_T1)
+    single = make_decode_fn(model, cfg, beam_size=BEAM, device=DEVICE)
+    two = make_decode_fn(model, two_cfg, beam_size=BEAM, device=DEVICE)
+    single32 = make_decode_fn(model32, cfg32, beam_size=BEAM, device=DEVICE)
+    two32 = make_decode_fn(model32, replace(two_cfg, compute_dtype="float32"), beam_size=BEAM,
+                           device=DEVICE)
+    fr, rg = (torch.from_numpy(a).to(DEVICE) for a in features(BATCH, cfg, seed=SEED + 11))
+    noise = torch.randn(fr.shape, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                        device=DEVICE)
+    bias = model.get_parameter("decoder.step.word_restore.bias")
+    base = float(bias.detach()[END_ID])
+    bucket = max(1, min(BATCH, cfg.decode_two_pass_bucket or BATCH // 4))
+    regimes, launches = [], {}
+    for name, window in TWO_PASS_REGIMES:
+        if window is None:
+            end_bias = 0.0
+        else:
+            end_bias, _ = search_end_bias(model, cfg, fr, rg, base, *window)
+        with torch.no_grad():
+            bias[END_ID] = base + end_bias
+        model32.load_state_dict(model.state_dict())
+        fin = finished_after(model, cfg, fr, rg, TWO_PASS_T1)
+        n_unfin = int((~fin).sum())
+        branch = "none" if n_unfin == 0 else ("bucket" if n_unfin <= bucket else "full batch")
+
+        # ---- the main path: one two-pass decode, every launch count read over it ----
+        reset_launches()
+        ids_two = two(fr, rg)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        k1 = VOCAB_LIB.launches
+        ids_one = single(fr, rg)
+        steps_single = VOCAB_LIB.launches - k1
+        n = launches[name]
+        if n["lstm_scan"] != 2 or not 1 <= n["vocab_head"] <= TWO_PASS_T1 + cfg.max_words \
+                or n["vocab_head[tensor_cores]"] != n["vocab_head"]:
+            raise AssertionError(f"two-pass decode ({name}) launches: {n}")
+        if ids_two.shape != (BATCH, cfg.max_words) or not torch.equal(ids_two[fin], ids_one[fin]):
+            raise AssertionError(f"two-pass ({name}): the rows pass 1 finished differ at bf16")
+        agree = agreement(ids_two, ids_one)
+        floor = agreement(ids_one, single(fr * (1 + 1e-6 * noise), rg))
+        if agree < floor - BF16_FLOOR_MARGIN:
+            raise AssertionError(f"two-pass ({name}) bf16 agreement {agree} is below the "
+                                 f"perturbation floor {floor} - {BF16_FLOOR_MARGIN}")
+        # fp32: pass 1's first t1 steps have the single pass's shapes, so the
+        # rows it finished are bitwise the single pass's; the re-decoded rows
+        # (a bucket's GEMMs may sum in another order) agree >= 99%
+        fin32 = finished_after(model32, cfg32, fr, rg, TWO_PASS_T1)
+        a32, b32 = single32(fr, rg), two32(fr, rg)
+        if not torch.equal(a32[fin32], b32[fin32]):
+            raise AssertionError(f"two-pass ({name}): the rows pass 1 finished differ at fp32")
+        agree32 = agreement(a32[~fin32], b32[~fin32]) if bool((~fin32).any()) else 1.0
+        if agree32 < TOKEN_AGREEMENT_MIN:
+            raise AssertionError(f"two-pass ({name}): re-decoded rows agree {agree32} < 0.99 at fp32")
+        regimes.append({
+            "regime": name, "end_bias_added": end_bias,
+            "finished_share_after_t1": float(fin.float().mean()),
+            "finished_share_after_t1_fp32": float(fin32.float().mean()),
+            "unfinished_rows": n_unfin, "pass2": branch,
+            "single_ms": time_ms(lambda: single(fr, rg), repeats=7, warmup=1, flush=False),
+            "two_pass_ms": time_ms(lambda: two(fr, rg), repeats=7, warmup=1, flush=False),
+            "beam_steps_single": steps_single, "beam_steps_two_pass": n["vocab_head"],
+            "launches_two_pass": n,
+            "token_agreement_bf16": agree, "bf16_self_agreement_input_1e-6": floor,
+            "token_agreement_redecoded_fp32": agree32,
+            "mean_caption_tokens": float((ids_one != END_ID).sum(dim=1).float().mean()),
+        })
+    result = {"phase": "two_pass", "config": "msr-vtt, bf16, use_pallas_lstm, fused vocab head",
+              "batch": BATCH, "beam": BEAM, "t1": TWO_PASS_T1, "bucket": bucket,
+              "regimes": regimes}
+    emit(result)
+    result["launches"] = {k: sum(n[k] for n in launches.values()) for k in launches["random"]}
     return result
+
+
+# ------------------------------------------------------------------- server
+
+
+def http(url: str, body: bytes = None, content_type: str = "application/x-npz"):
+    """(status, decoded reply, ms) of one request; an HTTP error is a reply."""
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": content_type})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            status, raw, ctype = r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        status, raw, ctype = e.code, e.read(), e.headers["Content-Type"]
+    ms = (time.perf_counter() - t) * 1e3
+    return status, (json.loads(raw) if "json" in ctype else raw.decode()), ms
+
+
+def npz_body(**arrays) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def phase_server(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
+    """CaptionServer over the serving Captioner (warmed), in a thread on
+    127.0.0.1: an .npz request of SERVER_CLIPS clips, a JSON request of 2
+    and a greedy .npz request of 8 (the main path), a malformed one, then
+    /healthz, /metrics, and the request latency against caption() alone."""
+    captioner = Captioner.from_params(cfg, vocab, params, device=DEVICE)
+    captioner.warmup()
+    server = CaptionServer(captioner, "127.0.0.1", 0)
+    server.start_background()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        fr, rg = features(SERVER_CLIPS, cfg, seed=SEED + 21)
+        vids = np.array([f"video{7010 + i}" for i in range(SERVER_CLIPS)])
+        body = npz_body(frames=fr, regions=rg, video_ids=vids)
+        fr2, rg2 = features(2, cfg, seed=SEED + 22)
+        json_body = json.dumps({"frames": fr2.tolist(), "regions": rg2.tolist(),
+                                "video_ids": [7, 8]}).encode()
+        fr8, rg8 = features(8, cfg, seed=SEED + 23)
+
+        # ---- the main path, with every kernel's launch count read over it ----
+        reset_launches()
+        replies = [http(f"{url}/caption", body)]
+        k1_npz = VOCAB_LIB.launches
+        replies.append(http(f"{url}/caption", json_body, "application/json"))
+        k1_json = VOCAB_LIB.launches - k1_npz
+        replies.append(http(f"{url}/caption?greedy=1", npz_body(frames=fr8, regions=rg8)))
+        launches = read_launches()
+
+        bad = http(f"{url}/caption", b"garbage", "application/json")
+        _, health, _ = http(f"{url}/healthz")
+        _, metrics_text, _ = http(f"{url}/metrics")
+        metrics = {ln.split()[0]: float(ln.split()[1]) for ln in metrics_text.splitlines()
+                   if ln and not ln.startswith("#")}
+        if [r[0] for r in replies] != [200, 200, 200] or bad[0] != 400:
+            raise AssertionError(f"statuses {[r[0] for r in replies]} and {bad[0]} for the bad body")
+        want = [(vids, captioner.caption(fr, rg)), ([7, 8], captioner.caption(fr2, rg2)),
+                (range(8), captioner.caption(fr8, rg8, greedy=True))]
+        for (_, payload, _), (ids, caps) in zip(replies, want):
+            got = [(c["video_id"], c["caption"]) for c in payload["captions"]]
+            if got != [(jsonable_id(v), c) for v, c in zip(ids, caps)]:
+                raise AssertionError(f"the server's captions differ from caption(): {got[:2]}")
+        if not (k1_npz >= 1 and k1_json >= 1 and launches["lstm_scan"] == 2 * 3
+                and launches["vocab_head"] == k1_npz + k1_json
+                and launches["vocab_head[tensor_cores]"] == launches["vocab_head"]):
+            raise AssertionError(f"server launches: {launches}, K1 {k1_npz} + {k1_json}")
+        if health.get("device_name") != torch.cuda.get_device_name(0) or \
+                health.get("devices") != torch.cuda.device_count() or health.get("warm") is not True:
+            raise AssertionError(f"/healthz: {health}")
+        counted = (metrics["dlsg_requests_total"], metrics["dlsg_clips_total"],
+                   metrics["dlsg_errors_total"], metrics["dlsg_request_latency_seconds_count"])
+        if counted != (4, SERVER_CLIPS + 2 + 8, 1, 3):
+            raise AssertionError(f"/metrics counted {counted}")
+
+        # ---- latency: the request against caption() alone on the same arrays ----
+        request_ms, server_s, caption_ms = [], [], []
+        for _ in range(3):
+            status, payload, ms = http(f"{url}/caption", body)
+            request_ms.append(ms)
+            server_s.append(payload["latency_s"])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            captioner.caption(fr, rg)
+            caption_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        server.shutdown()
+        server.server_close()
+    result = {
+        "phase": "server", "config": "msr-vtt, bf16, use_pallas_lstm, fused vocab head, warmed",
+        "npz_clips": SERVER_CLIPS, "npz_body_mb": len(body) / 1e6,
+        "json_body_mb": len(json_body) / 1e6, "launches": launches,
+        "healthz": health, "metrics": dict(zip(("requests", "clips", "errors", "latencies"), counted)),
+        "request_ms_npz": float(np.median(request_ms)), "request_ms_npz_all": request_ms,
+        "server_latency_ms_npz": 1e3 * float(np.median(server_s)),
+        "caption_ms_same_clips": float(np.median(caption_ms)), "caption_ms_all": caption_ms,
+        "request_ms_json_2_clips": replies[1][2], "request_ms_greedy_8_clips": replies[2][2],
+        "sample": replies[0][1]["captions"][0],
+    }
+    emit(result)
+    return result
+
+
+# ------------------------------------------------------------------- scorer
+
+
+def phase_scorer(references: dict, captions: dict, build_s: float) -> dict:
+    """The trainer phase's 26-word captions scored through the C++ tokenizer
+    and aligner and through the Python ones: the seven scores must be equal."""
+    t = time.perf_counter()
+    cpp = score_captions(references, captions)
+    cpp_s = time.perf_counter() - t
+    saved = native.ptb_tokenize, native.meteor_stats
+    native.ptb_tokenize = native.meteor_stats = lambda *args, **kw: None  # the Python path
+    try:
+        t = time.perf_counter()
+        py = score_captions(references, captions)
+        py_s = time.perf_counter() - t
+    finally:
+        native.ptb_tokenize, native.meteor_stats = saved
+    if set(cpp) != set(SCORE_KEYS) or cpp != py:
+        raise AssertionError(f"C++ scores {cpp} differ from the Python path's {py}")
+    result = {"phase": "scorer", "captions": len(captions),
+              "words_per_caption": len(next(iter(captions.values())).split()),
+              "cpp_s": cpp_s, "python_s": py_s, "python_over_cpp": py_s / cpp_s,
+              "library_build_s": build_s, "library": native.library_path().name, "scores": cpp}
+    emit(result)
+    return result
+
+
+# -------------------------------------------------------- cli serve / export
+
+
+def reference_state_dict(cfg: DLSGConfig, vocab_size: int, seed: int) -> dict:
+    """A random state_dict with the key set and shapes of the reference
+    CapGnnModel (run_gun.py:302-310 `model_state_dict`), its dead parameters
+    included; tests/test_convert.py builds the same set."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def t(key, *shape):
+        sd[key] = torch.from_numpy((0.1 * rng.standard_normal(shape)).astype(np.float32))
+
+    def linear(key, fin, fout, bias=True):
+        t(f"{key}.weight", fout, fin)
+        if bias:
+            t(f"{key}.bias", fout)
+
+    def ln(key, d):
+        t(f"{key}.weight", d)
+        t(f"{key}.bias", d)
+
+    def lstm(key, fin, h, sfx=""):  # sfx "_l0" / "_l0_reverse": nn.LSTM; "": LSTMCell
+        for name, shape in (("weight_ih", (4 * h, fin)), ("weight_hh", (4 * h, h)),
+                            ("bias_ih", (4 * h,)), ("bias_hh", (4 * h,))):
+            t(f"{key}.{name}{sfx}", *shape)
+
+    def att(key, vin, kin, out, norm=True):
+        for name, fin in (("K", vin), ("Q", kin), ("V", vin)):
+            linear(f"{key}.{name}", fin, out, bias=False)
+        if norm:  # AttentionShare
+            linear(f"{key}.output_layer.0", out, out, bias=False)
+            ln(f"{key}.output_layer.2", out)
+
+    H, Q, D = cfg.visual_hidden_size, cfg.query_hidden_size, cfg.decode_hidden_size
+    for branch, vin in (("obj_encoder", cfg.a_feature_size), ("motion_encoder", None)):
+        key = f"encoder.{branch}"
+        if vin is not None:
+            linear(f"{key}.visual_embed", vin, H)
+        ln(f"{key}.visual_norm.1", H)
+        if cfg.num_obj > 4:
+            linear(f"{key}.obj_embed", cfg.region_feature_size, cfg.region_projected_size)
+            ln(f"{key}.obj_norm.1", cfg.region_projected_size)
+            ln(f"{key}.obj_visual_norm.1", H)
+        t(f"{key}.v2l_layer.theta", cfg.num_proposals, H)
+        ln(f"{key}.v2l_layer.out_norm.1", H)
+        ln(f"{key}.att_l2l_norm", H)  # dead in the reference's forward
+    pre = "encoder.motion_pre_encoder"
+    linear(f"{pre}.linear_embed", cfg.a_feature_size + cfg.m_feature_size, H)
+    lstm(f"{pre}.lstm", H, H, "_l0")
+    lstm(f"{pre}.lstm", H, H, "_l0_reverse")
+    ln(f"{pre}.layernorm_lstm", 2 * H)
+    att(f"{pre}.self_attention", 2 * H, 2 * H, 2 * H, norm=False)
+    linear(f"{pre}.self_attention.output_layer.0", 2 * H, H, bias=False)
+    ln(f"{pre}.layernorm_sa", H)
+    t("decoder.word_embed.weight", vocab_size, cfg.word_size)
+    lstm("decoder.query_lstm", D + 2 * H + cfg.word_size, Q)
+    ln("decoder.query_lstm_layernorm", Q)
+    lstm("decoder.lang_lstm", 2 * H + Q, D)
+    ln("decoder.lang_lstm_layernorm", D)
+    att("decoder.context_att", H, Q, H)
+    att("decoder.context_att_2", H, Q, H)
+    linear("decoder.word_restore", D, vocab_size)
+    ln("decoder.context_layernorm", D)  # dead in the reference's forward
+    return sd
+
+
+def phase_cli_serve() -> dict:
+    """`cli export`, `cli serve --bundle --features` and `cli evaluate
+    --torch_checkpoint` at tiny dims on the card (the device left at its
+    default), both kernel switches on."""
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_serve_")
+    switches = ["--use_fused_vocab_head", "on", "--use_pallas_lstm", "true"]
+    flags = CLI_FLAGS + switches + ["--result_dir", os.path.join(work.name, "results")]
+    cfg = parse_opt(CLI_DIMS + switches)
+    bundle = os.path.join(work.name, "model.dlsg.npz")
+    clips = os.path.join(work.name, "clips.npz")
+    out = os.path.join(work.name, "captions.jsonl")
+    fr, rg = features(5, cfg, seed=SEED + 31)
+    vids = np.array(["clip_a", "clip_b", "clip_c", "clip_d", "clip_e"])
+    np.savez(clips, frames=fr, regions=rg, video_ids=vids)
+    timings = {}
+
+    def run(name, argv):
+        stdout = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(argv)
+        timings[name] = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"cli {name} returned {rc}")
+        return stdout.getvalue()
+
+    run("export", ["export", "--allow_random_params", "--out", bundle] + flags)
+    # ---- the main path: `cli serve`, every launch count read over it ----
+    reset_launches()
+    run("serve", ["serve", "--bundle", bundle, "--features", clips, "--output", out])
+    launches = read_launches()
+    lines = [json.loads(ln) for ln in open(out)]
+    want = Captioner.from_bundle(bundle, device=DEVICE).caption(fr, rg)
+    if lines != [{"video_id": jsonable_id(v), "caption": c} for v, c in zip(vids, want)]:
+        raise AssertionError(f"cli serve wrote {lines[:2]}, caption() gives {want[:2]}")
+    chunks = -(-len(vids) // cfg.test_batch_size)  # Captioner batches of test_batch_size
+    if launches["lstm_scan"] != 2 * chunks or not chunks <= launches["vocab_head"] <= chunks * cfg.max_words:
+        raise AssertionError(f"cli serve launches: {launches}")
+    # a reference-schema .pt, written here, through evaluate --torch_checkpoint
+    pt = os.path.join(work.name, "reference_epoch.pt")
+    torch.save({"epoch": 0, "model_state_dict": reference_state_dict(cfg, len(make_vocab()), SEED),
+                "cap_list": np.zeros(1)}, pt)
+    printed = run("evaluate", ["evaluate", "--torch_checkpoint", pt] + flags)
+    scores = dict(ln.split(": ") for ln in printed.splitlines() if ln.split(":")[0] in SCORE_KEYS)
+    if list(scores) != list(SCORE_KEYS) or not all(np.isfinite(float(v)) for v in scores.values()):
+        raise AssertionError(f"cli evaluate --torch_checkpoint printed {printed!r}")
+    work.cleanup()
+    result = {"phase": "cli_serve", "config": "tiny dims (CLI_FLAGS), fp32, both kernel switches",
+              "seconds": timings, "captions": len(lines), "launches": launches,
+              "evaluate_torch_checkpoint_scores": {k: float(v) for k, v in scores.items()}}
+    emit(result)
+    return result
+
 
 
 def main() -> None:
     info = phase_device()
-    phase_build()
+    scorer_build_s = phase_build()
     cfg = apply_dataset_overrides(
         DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
                    use_pallas_lstm=True, use_fused_vocab_head="on")
@@ -892,18 +1347,27 @@ def main() -> None:
         ("vocab_head[tensor_cores]", check_vocab_head(cfg, torch.bfloat16)),
         ("vocab_head[simt]", check_vocab_head(cfg, torch.float32)),
     ]
-    launches = phase_serving(cfg)["launches"]
+    vocab, params = serving_model(cfg)
+    launches = {"launches": phase_serving(cfg, vocab, params)["launches"]}
+    torch.cuda.empty_cache()
+    launches["launches_two_pass"] = phase_two_pass(cfg, params)["launches"]
+    torch.cuda.empty_cache()
+    launches["launches_server"] = phase_server(cfg, vocab, params)["launches"]
+    del params
     torch.cuda.empty_cache()
     phase_train(apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16")))
     torch.cuda.empty_cache()
-    trainer_launches = phase_trainer(
+    trainer, references, captions = phase_trainer(
         apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
                                            use_fused_vocab_head="on", epoch_num=1)),
         VOCAB, TRAINER_VIDEOS,
-    )["launches"]
+    )
+    launches["launches_trainer"] = trainer["launches"]
+    phase_scorer(references, captions, scorer_build_s)
+    launches["launches_cli_serve"] = phase_cli_serve()["launches"]
     for key, entry in checks:
-        entry["launches"] = launches[key]
-        entry["launches_trainer"] = trainer_launches[key]
+        for path, counts in launches.items():
+            entry[path] = counts[key]
     emit({"kernels": [entry for _, entry in checks]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})

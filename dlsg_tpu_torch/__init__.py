@@ -18,16 +18,20 @@ Subpackages
 - ``models``     : CapGnnModel (encoders, decoder, shared layers), DiscV2
 - ``train``      : Adam train states, schedules, the GAN-lambda machine, the
                    CE and WGAN-GP train steps, the RunGAN trainer
-- ``data``       : HDF5/pickle readers, batchers, host -> device prefetch,
-                   synthetic data
+- ``data``       : HDF5/pickle readers, batchers, a worker-process pool,
+                   host -> device prefetch, synthetic data
 - ``metrics``    : PTB tokenizer, BLEU, METEOR, ROUGE-L, CIDEr, COCOScorer
-- ``evaluation`` : greedy and beam decode functions, evaluate() with
-                   scoring, best-result tracking
+- ``native``     : the C++ PTB tokenizer, stemmer and METEOR aligner (g++ at
+                   first use, ctypes)
+- ``evaluation`` : greedy, beam and two-pass decode functions, evaluate()
+                   with scoring, best-result tracking
 - ``checkpoint`` : best-model and per-epoch training checkpoints, resume
+- ``convert``    : reference-trained torch .pt -> this package's state_dict
 - ``utils``      : scalar logging, Stopwatch and torch.profiler traces,
                    attention heatmaps
 - ``serve``      : load-once Captioner (bucketed batches, warmup)
-- ``cli``        : ``python -m dlsg_tpu_torch.cli train|evaluate``
+- ``server``     : the HTTP captioning service over a Captioner
+- ``cli``        : ``python -m dlsg_tpu_torch.cli train|evaluate|serve|export``
 
 Entry points run on `cuda` unless the caller passes ``device="cpu"``.
 """

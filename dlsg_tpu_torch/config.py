@@ -122,7 +122,7 @@ class DLSGConfig:
     disc_scan_unroll: int = 1
     disc_remat: str = "none"
     decoder_remat: str = "none"
-    decode_two_pass_t1: int = 0  # two-pass decode is not ported yet
+    decode_two_pass_t1: int = 0
     decode_two_pass_bucket: int = 0
     mesh_data_axis: int = -1
     mesh_model_axis: int = 1

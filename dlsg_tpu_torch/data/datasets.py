@@ -15,8 +15,9 @@ vectors.
 
 A copy of `dlsg_tpu/data/datasets.py`. `h5py` is imported where a file is
 opened, not with the module, so the package (and its CLI) imports where
-h5py is not installed; `spawn_spec` (for the JAX package's worker pool) is
-not ported.
+h5py is not installed. `spawn_spec()` tells a worker process of
+`data/parallel_loader.py` how to rebuild a dataset with its own file
+handles (h5py handles do not cross a process boundary).
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ class CaptionDataset:
 
         self.cfg = cfg
         cap_pkl = cap_pkl or cfg.train_caption_pkl_path
+        self._cap_pkl = cap_pkl  # spawn_spec: worker processes rebuild from this
         with open(cap_pkl, "rb") as f:
             captions, pos_tags, lengths, video_ids = pickle.load(f)
         self.captions, self.lengths = _to_numpy_captions(captions, lengths, cfg.max_words)
@@ -102,6 +104,10 @@ class CaptionDataset:
             "lengths": self.lengths[index],
             "video_ids": np.int32(vid),
         }
+
+    def spawn_spec(self):
+        """(callable, args) a worker process calls to rebuild this dataset."""
+        return (type(self), (self.cfg, self._cap_pkl))
 
     def get_batch(self, idxs) -> dict:
         """Assemble a whole batch with single-copy h5 reads.
@@ -184,6 +190,15 @@ class EvalVideoDataset:
             "spatials": np.asarray(self.spatial_feats[vid], np.float32),
             "video_ids": np.int32(vid),
         }
+
+    def spawn_spec(self):
+        """See CaptionDataset.spawn_spec. The eval list is rebuilt as the
+        range from its first id to its last, so it must be that range."""
+        ids = self.eval_list
+        rng = (ids[0], ids[-1] + 1) if ids else (0, 0)
+        if tuple(ids) != tuple(range(*rng)):
+            raise ValueError(f"the eval list is not one contiguous id range: {ids}")
+        return (type(self), (self.cfg, rng))
 
     def get_batch(self, idxs) -> dict:
         """Single-copy batch assembly (see CaptionDataset.get_batch)."""

@@ -47,8 +47,8 @@ def epoch_batch_indices(
 ) -> list:
     """The epoch's batch index lists: shuffled by (seed, epoch) identically on
     every host, then a strided per-host slice — the standard multi-host SPMD
-    recipe. The single source of the epoch order (the JAX package's worker
-    pool, not ported yet, takes the same lists)."""
+    recipe. The single source of the epoch order (the worker pool,
+    `data/parallel_loader.py`, takes the same lists)."""
     order = np.random.default_rng(seed + 1000 * epoch).permutation(n)
     order = order[shard_index::num_shards]
     num_full = len(order) // batch_size

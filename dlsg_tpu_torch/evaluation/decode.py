@@ -3,8 +3,10 @@
 CapGnnModel, with the fused vocab-head kernel behind
 `use_fused_vocab_head`.
 
-Scoring is `evaluation/evaluate.py::evaluate`. The two-pass decode and
-mesh-sharded decode are not ported yet.
+Scoring is `evaluation/evaluate.py::evaluate`. With `0 <
+decode_two_pass_t1 < max_words` the beam decode runs in two passes
+(`_make_two_pass_fn`). Mesh-sharded decode is not ported yet (ROADMAP queue
+1, item 6).
 """
 
 from __future__ import annotations
@@ -43,8 +45,6 @@ def make_decode_fn(
     Inputs may be numpy arrays or tensors; they are moved to `device`."""
     device = resolve_device(device)
     model.to(device)
-    if 0 < cfg.decode_two_pass_t1 < cfg.max_words:
-        raise NotImplementedError("the two-pass decode (decode_two_pass_t1) is not ported yet")
     beam = beam_size if beam_size is not None else cfg.beam_size
 
     def _inputs(frames, regions):
@@ -60,6 +60,9 @@ def make_decode_fn(
         return decode_greedy
 
     beam_feats = _make_beam_from_feats(model, cfg, beam)
+    t1 = cfg.decode_two_pass_t1
+    if 0 < t1 < cfg.max_words:
+        return _make_two_pass_fn(model, cfg, return_alpha, beam_feats, t1, _inputs)
 
     @torch.inference_mode()
     def decode_beam(frames, regions):
@@ -70,6 +73,56 @@ def make_decode_fn(
         return preds[:, 0, :]
 
     return decode_beam
+
+
+def _make_two_pass_fn(
+    model, cfg: DLSGConfig, return_alpha: bool, beam_feats: Callable, t1: int, inputs: Callable
+) -> Callable:
+    """Per-sequence early exit in two passes (JAX's `_make_two_pass_fn`).
+
+    Pass 1 beam-decodes every row for t1 steps. Rows whose beams have all
+    emitted `<end>` by then can never change (a forced `<end>` adds log-prob
+    0), so only the others are decoded again, from the encoder outputs, at
+    full length: compacted by a stable argsort of the finished mask into a
+    bucket of `decode_two_pass_bucket` (default B // 4) rows and scattered
+    back. When more rows than the bucket are unfinished, the whole batch is
+    decoded again instead.
+
+    JAX picks the branch with a `lax.cond` on the device. Here one host read
+    of the unfinished count picks it (the beam already syncs once a step for
+    its early exit), and with no unfinished row pass 2 is skipped, which
+    JAX's masked scatter leaves the same."""
+    T = cfg.max_words
+
+    def pass2(obj, mot):
+        preds, _, alphas, _ = beam_feats(obj, mot, T)
+        return preds[:, 0, :], alphas[:, 0]
+
+    @torch.inference_mode()
+    def decode_two_pass(frames, regions):
+        obj, mot = model.encode(*inputs(frames, regions))
+        B = obj.shape[0]
+        bucket = max(1, min(B, cfg.decode_two_pass_bucket or B // 4))
+        preds1, _, alphas1, fin = beam_feats(obj, mot, t1)
+        ids = torch.cat([preds1[:, 0, :], preds1.new_full((B, T - t1), END_ID)], dim=1)
+        al1 = alphas1[:, 0]
+        alphas = torch.cat([al1, al1.new_zeros((B, T - t1) + al1.shape[2:])], dim=1)
+        unfin = ~fin
+        n_unfin = int(unfin.sum())  # the one host read that picks the branch
+        if 0 < n_unfin <= bucket < B:
+            # unfinished rows first, in their order, then finished ones
+            idx = torch.argsort(fin.to(torch.int8), stable=True)[:bucket]
+            ids2, al2 = pass2(obj[idx], None if mot is None else mot[idx])
+            mask = unfin[idx]
+            ids[idx] = torch.where(mask[:, None], ids2, ids[idx])
+            alphas[idx] = torch.where(mask[:, None, None], al2, alphas[idx])
+        elif n_unfin:
+            ids2, al2 = pass2(obj, mot)
+            ids = torch.where(unfin[:, None], ids2, ids)
+            alphas = torch.where(unfin[:, None, None], al2, alphas)
+        return (ids, alphas) if return_alpha else ids
+
+    return decode_two_pass
 
 
 def _make_beam_from_feats(model, cfg: DLSGConfig, beam: int) -> Callable:

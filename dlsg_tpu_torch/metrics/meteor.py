@@ -21,7 +21,8 @@ this module implements the published METEOR 1.5 English scoring algorithm
   `set_paraphrase_table` / `set_phrase_table` / `set_function_words` swap in
   custom tables, and `load_paraphrase_file` / `load_synonym_file` /
   `load_function_words_file` (or the $DLSG_METEOR_*_FILE env vars) install
-  the OFFICIAL resources when a user has them. The remaining
+  the OFFICIAL resources when a user has them — custom tables are mirrored
+  into the C++ aligner so the native fast path stays active. The remaining
   default-config deviation from the jar is table CONTENT (curated
   caption-domain groups vs PPDB) — see BENCHMARKS.md "METEOR fidelity".
 - alignment: the official Aligner's beam search over partial alignments,
@@ -44,9 +45,10 @@ The scoring engine is validated against an independent implementation:
 (exact+stem, original 2005 parameters) on a fixture set and asserts equality
 when this engine is configured with the same parameters.
 
-A copy of `dlsg_tpu/metrics/meteor.py`'s Python aligner. The JAX package
-also has a C++ aligner with the same results (tests/test_native.py); it is
-not ported, so every score here takes the Python path.
+A copy of `dlsg_tpu/metrics/meteor.py`. The C++ aligner
+(`dlsg_tpu_torch/native`, a copy of the JAX package's) scores ASCII pairs at
+the default parameters; this Python version is the reference, with identical
+results (tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -55,8 +57,10 @@ import gzip
 import io
 import os
 import re
+import tempfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from dlsg_tpu_torch import native
 from dlsg_tpu_torch.metrics.stemmer import porter2_stem
 
 # METEOR 1.5 English parameters (Denkowski & Lavie 2014, table 2)
@@ -86,6 +90,14 @@ _SYNONYM: Optional[Dict[str, frozenset]] = None  # None -> load default file
 _PARAPHRASE: Optional[Dict[str, frozenset]] = None
 _PHRASE: Optional[Dict[str, frozenset]] = None
 _FUNCTION: Optional[frozenset] = None  # None -> the built-in FUNCTION_WORDS
+_SYN_CUSTOM = False  # a user-installed table replaces the shipped one
+_PARA_CUSTOM = False
+_PHRASE_CUSTOM = False
+_FW_CUSTOM = False
+_IS_DEFAULT_TABLE = True  # native fast path only valid with the shipped tables
+# _sync_native() mirrors custom tables into the C++ aligner, which re-validates
+# the native fast path even though the tables are non-default
+_TABLES_NATIVE_SYNCED = False
 
 
 def get_function_words() -> frozenset:
@@ -171,10 +183,12 @@ def set_synonym_table(table: Optional[Dict[str, Sequence[str]]]) -> None:
 
     Pass None to restore the shipped default; pass {} to disable stage 2.
     """
-    global _SYNONYM
+    global _SYNONYM, _SYN_CUSTOM
+    _SYN_CUSTOM = table is not None
     _SYNONYM = None if table is None else {
         k: frozenset(v) for k, v in table.items()
     }
+    _sync_native()
 
 
 def set_paraphrase_table(table: Optional[Dict[str, Sequence[str]]]) -> None:
@@ -182,30 +196,124 @@ def set_paraphrase_table(table: Optional[Dict[str, Sequence[str]]]) -> None:
 
     Pass None to restore the shipped default; pass {} to disable stage 3.
     """
-    global _PARAPHRASE
+    global _PARAPHRASE, _PARA_CUSTOM
+    _PARA_CUSTOM = table is not None
     _PARAPHRASE = None if table is None else {
         k: frozenset(v) for k, v in table.items()
     }
+    _sync_native()
 
 
 def set_phrase_table(table: Optional[Dict[str, Sequence[str]]]) -> None:
     """Install a custom stage-3 PHRASE table (phrase -> equivalent phrases,
     all space-joined word strings). None restores the shipped default; {}
     disables span matching."""
-    global _PHRASE, _PHRASE_MAX_LEN
+    global _PHRASE, _PHRASE_CUSTOM, _PHRASE_MAX_LEN
+    _PHRASE_CUSTOM = table is not None
     _PHRASE = None if table is None else {
         " ".join(k.split()): frozenset(" ".join(x.split()) for x in v)
         for k, v in table.items()
     }
     _PHRASE_MAX_LEN = None
+    _sync_native()
 
 
 def set_function_words(words: Optional[Sequence[str]]) -> None:
     """Install a custom function-word list for delta discounting (METEOR's
     own list is corpus-derived; the built-in is a compact stand-in). None
     restores the built-in; an empty list disables discounting."""
-    global _FUNCTION
+    global _FUNCTION, _FW_CUSTOM
+    _FW_CUSTOM = words is not None
     _FUNCTION = None if words is None else frozenset(words)
+    _sync_native()
+
+
+_SYNC_SUSPENDED = False  # batch multiple table installs into one native push
+_SYNC_DIR: Optional[str] = None  # one reused temp dir per process (no leak)
+
+
+def _sync_dir() -> str:
+    global _SYNC_DIR
+    if _SYNC_DIR is None:
+        import atexit
+        import shutil
+
+        _SYNC_DIR = tempfile.mkdtemp(prefix="dlsg_meteor_tables_")
+        atexit.register(shutil.rmtree, _SYNC_DIR, ignore_errors=True)
+    return _SYNC_DIR
+
+
+def _sync_native() -> None:
+    """Make the C++ aligner agree with the CURRENT Python-side tables.
+
+    Default tables: reinstall the shipped files into an already-loaded
+    library (a lazily-loaded one installs them itself). Custom tables: push
+    the exact Python contents through the native loaders; only on success is
+    the native fast path re-validated (_TABLES_NATIVE_SYNCED)."""
+    global _IS_DEFAULT_TABLE, _TABLES_NATIVE_SYNCED
+    _IS_DEFAULT_TABLE = not (
+        _SYN_CUSTOM or _PARA_CUSTOM or _PHRASE_CUSTOM or _FW_CUSTOM
+    )
+    _TABLES_NATIVE_SYNCED = False
+    if _SYNC_SUSPENDED:
+        return  # maybe_load_env_tables() syncs once after all its loads
+    if _IS_DEFAULT_TABLE:
+        native.reload_default_tables()
+        return
+    lib = native.load()  # raises if the library cannot be built
+    tmp = _sync_dir()
+    representable = True
+
+    def _write_pairs(name, table, sep=" ", allow_space=False):
+        # 2-element groups through the native group loaders are exactly
+        # symmetric pairs (no transitive closure); both engines look pairs up
+        # in both directions, so one unordered pair per line suffices —
+        # asymmetric custom entries become symmetric in BOTH engines already
+        nonlocal representable
+        pairs = set()
+        for a, eq in table.items():
+            for b in eq:
+                if a != b:
+                    pairs.add((a, b) if a <= b else (b, a))
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            for a, b in sorted(pairs):
+                # the C++ group loaders re-tokenize on ANY whitespace, so a
+                # tab/newline inside a key would silently change the pair —
+                # normalized single-space phrases are the only spaces allowed
+                clean = all(
+                    "#" not in x and "|" not in x
+                    and (" ".join(x.split()) == x if allow_space
+                         else x.split() == [x])
+                    for x in (a, b)
+                )
+                if not clean:
+                    representable = False  # file format can't express it
+                    continue
+                f.write(f"{a}{sep}{b}\n")
+        return path
+
+    syn = _write_pairs("synonyms.txt", get_synonym_table())
+    para = _write_pairs("paraphrases.txt", get_paraphrase_table())
+    phr = _write_pairs("phrases.txt", get_phrase_table(), sep=" ||| ",
+                       allow_space=True)
+    fw_path = os.path.join(tmp, "function_words.txt")
+    with open(fw_path, "w") as f:
+        for w in sorted(get_function_words()):
+            if "#" in w or w.split() != [w]:  # any whitespace re-tokenizes
+                representable = False
+                continue
+            f.write(w + "\n")
+    ok = representable and (
+        lib.dlsg_meteor_load_synonyms(syn.encode()) >= 0
+        and lib.dlsg_meteor_load_paraphrases(para.encode()) >= 0
+        and lib.dlsg_meteor_load_phrases(phr.encode()) >= 0
+        and lib.dlsg_meteor_load_function_words(fw_path.encode()) >= 0
+    )
+    if ok:
+        _TABLES_NATIVE_SYNCED = True
+    else:  # half-loaded native tables must never be consulted: reset them
+        native.reload_default_tables()
 
 
 def _open_maybe_gz(path: str):
@@ -275,13 +383,15 @@ def load_paraphrase_file(path: str, min_score: Optional[float] = None) -> Dict[s
 
     ``min_score`` drops pairs whose score field (probability or PPDB score —
     whatever the file carries) is below the threshold; pairs without a score
-    always load.
+    always load. The parsed tables are also mirrored into the native C++
+    aligner so the fast path stays active; pairs its table files cannot hold
+    leave the scoring to the Python aligner.
 
-    Returns ``{"word_pairs": n, "phrase_pairs": n, "lines_skipped": n}``.
-    Memory note: the full paraphrase-en.gz expands to
+    Returns ``{"word_pairs": n, "phrase_pairs": n, "lines_skipped": n,
+    "native_synced": 0|1}``. Memory note: the full paraphrase-en.gz expands to
     a few GB of Python dicts — the jar needed -Xmx2G for the same data.
     """
-    global _PARAPHRASE, _PHRASE
+    global _PARAPHRASE, _PARA_CUSTOM, _PHRASE, _PHRASE_CUSTOM
     word: Dict[str, set] = {}
     phrase: Dict[str, set] = {}
     skipped = 0
@@ -294,8 +404,8 @@ def load_paraphrase_file(path: str, min_score: Optional[float] = None) -> Dict[s
             p1, p2, score = parsed
             if min_score is not None and score is not None and score < min_score:
                 continue
-            # scoring tokenizes to lowercase; '#'/'|' are the table files'
-            # comment and field separators, dropped as in the JAX package
+            # scoring tokenizes to lowercase; '#'/'|' would corrupt the table
+            # files mirrored to the C++ loader (comment / field separators)
             p1 = " ".join(p1.lower().split())
             p2 = " ".join(p2.lower().split())
             if p1 == p2 or not p1 or not p2 or "#" in p1 + p2 or "|" in p1 + p2:
@@ -304,14 +414,18 @@ def load_paraphrase_file(path: str, min_score: Optional[float] = None) -> Dict[s
             tgt = word if (" " not in p1 and " " not in p2) else phrase
             tgt.setdefault(p1, set()).add(p2)
             tgt.setdefault(p2, set()).add(p1)
+    # direct install (set_* would push to native once per table)
     global _PHRASE_MAX_LEN
+    _PARA_CUSTOM = _PHRASE_CUSTOM = True
     _PARAPHRASE = {k: frozenset(v) for k, v in word.items()}
     _PHRASE = {k: frozenset(v) for k, v in phrase.items()}
     _PHRASE_MAX_LEN = None
+    _sync_native()
     return {
         "word_pairs": sum(len(v) for v in word.values()) // 2,
         "phrase_pairs": sum(len(v) for v in phrase.values()) // 2,
         "lines_skipped": skipped,
+        "native_synced": int(_TABLES_NATIVE_SYNCED),
     }
 
 
@@ -322,9 +436,10 @@ def load_synonym_file(path: str, min_score: Optional[float] = None) -> Dict[str,
     WordNet-derived synonym list (METEOR 1.5's synonymy module). Accepts the
     shipped groups format (space-separated equivalence groups per line, '#'
     comments) or the same '|||'/tab pair lines as the paraphrase loader
-    (multi-word sides are rejected — stage 2 is word-level). Returns
-    ``{"word_pairs": n, "lines_skipped": n}``."""
-    global _SYNONYM
+    (multi-word sides are rejected — stage 2 is word-level). Mirrored into
+    the C++ aligner like every custom table. Returns
+    ``{"word_pairs": n, "lines_skipped": n, "native_synced": 0|1}``."""
+    global _SYNONYM, _SYN_CUSTOM
     table: Dict[str, set] = {}
     skipped = 0
     with _open_maybe_gz(path) as f:
@@ -348,10 +463,13 @@ def load_synonym_file(path: str, min_score: Optional[float] = None) -> Dict[str,
                 continue
             for w in words:
                 table.setdefault(w, set()).update(x for x in words if x != w)
+    _SYN_CUSTOM = True
     _SYNONYM = {k: frozenset(v) for k, v in table.items()}
+    _sync_native()
     return {
         "word_pairs": sum(len(v) for v in table.values()) // 2,
         "lines_skipped": skipped,
+        "native_synced": int(_TABLES_NATIVE_SYNCED),
     }
 
 
@@ -359,13 +477,14 @@ def load_function_words_file(path: str) -> Dict[str, int]:
     """Install METEOR's corpus-derived function-word list from a file (one or
     more whitespace-separated words per line, '#' comments) — the last
     documented content deviation from the jar's English configuration.
-    Returns ``{"words": n}``."""
+    Returns ``{"words": n, "native_synced": 0|1}``."""
     words = []
     with _open_maybe_gz(path) as f:
         for line in f:
             words.extend(line.split("#")[0].lower().split())
     set_function_words(words)
-    return {"words": len(get_function_words())}
+    return {"words": len(get_function_words()),
+            "native_synced": int(_TABLES_NATIVE_SYNCED)}
 
 
 _ENV_LOADERS = (
@@ -381,11 +500,24 @@ def maybe_load_env_tables() -> None:
     per path): every scoring entry point (Meteor()) calls this, so exporting a
     var routes ALL METEOR scoring — cli evaluate, in-training eval, serve —
     through the official resources without code changes."""
-    for var, loader in _ENV_LOADERS:
-        path = os.environ.get(var)
-        if path and path != _env_table_loaded.get(var):
-            loader(path)
-            _env_table_loaded[var] = path
+    global _SYNC_SUSPENDED
+    pending = [
+        (var, loader) for var, loader in _ENV_LOADERS
+        if os.environ.get(var)
+        and os.environ.get(var) != _env_table_loaded.get(var)
+    ]
+    if not pending:
+        return
+    # one native push for all loads (each would otherwise rewrite and re-sort
+    # every table file — expensive with the real GB-scale resources)
+    _SYNC_SUSPENDED = True
+    try:
+        for var, loader in pending:
+            loader(os.environ[var])
+            _env_table_loaded[var] = os.environ[var]
+    finally:
+        _SYNC_SUSPENDED = False
+    _sync_native()
 
 
 def _table_match(h, r, hs, rs, table) -> bool:
@@ -529,8 +661,7 @@ def _align(
 
 def _state_rank(state):
     """Total order on partial alignments: the METEOR objective, then a
-    deterministic tie-break on the match list (the JAX package's C++ aligner
-    breaks ties the same way)."""
+    deterministic tie-break on the match list (keeps the C++ port exact)."""
     _, _, _, _, words, chunks, dist, matchlist = state
     return (-words, chunks, dist, matchlist)
 
@@ -589,6 +720,14 @@ class SegmentStats:
 def _segment_stats(
     hyp: List[str], ref: List[str], params: MeteorParams = _DEFAULT_PARAMS
 ) -> SegmentStats:
+    # native fast path: the C++ aligner implements the same beam search and
+    # synonym table (tests/test_torch_native.py asserts exact equivalence); only
+    # valid at default parameters with the shipped tables — or with tables
+    # that load_paraphrase_file() mirrored into the C++ side
+    if params is _DEFAULT_PARAMS and (_IS_DEFAULT_TABLE or _TABLES_NATIVE_SYNCED):
+        st = native.meteor_stats(" ".join(hyp), " ".join(ref))
+        if st is not None:
+            return SegmentStats(st[0], st[1], st[2], st[3], int(st[4]), st[5])
     matches = _align(hyp, ref)
     # every word covered by a match contributes its stage-weighted word weight
     # (a phrase match covers hl hyp words and rl ref words)

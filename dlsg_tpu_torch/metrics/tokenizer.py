@@ -6,14 +6,17 @@ to stanford-corenlp-3.4.1.jar with `-preserveLines -lowerCase`) with a native
 implementation of the PTB tokenization rules relevant to caption text, followed
 by the same punctuation-token removal list (`ptbtokenizer.py:21-22`).
 
-A copy of `dlsg_tpu/metrics/tokenizer.py`'s Python implementation; the JAX
-package's C++ tokenizer, which gives the same tokens, is not ported.
+A copy of `dlsg_tpu/metrics/tokenizer.py`. ASCII lines go to the C++
+tokenizer (`dlsg_tpu_torch/native`), which gives the same tokens; the
+Python body below is the reference and takes the rest.
 """
 
 from __future__ import annotations
 
 import re
 from typing import Dict, List
+
+from dlsg_tpu_torch import native
 
 # ptbtokenizer.py:21-22 — tokens removed after tokenization
 PUNCTUATIONS = [
@@ -141,6 +144,9 @@ def ptb_tokenize_line(line: str, lowercase: bool = True) -> List[str]:
     Covers the phenomena that occur in caption text: punctuation splitting,
     n't / 's / 'll / 're / 've / 'd / 'm clitics, bracket normalization
     (-LRB- etc.), directional quote conversion, ellipses and dashes.
+
+    ASCII text takes the C++ tokenizer (`native.ptb_tokenize`); this body is
+    the reference behaviour.
     """
     s = line.strip()
     if lowercase:
@@ -153,6 +159,10 @@ def ptb_tokenize_line(line: str, lowercase: bool = True) -> List[str]:
         .replace("–", "--").replace("—", "--")
         .replace("…", "...")
     )
+
+    toks = native.ptb_tokenize(s, lowercase=False)  # already lowercased
+    if toks is not None:
+        return toks
 
     # brackets -> PTB symbols
     for src, dst in [

@@ -12,11 +12,14 @@ and an epoch's batch order from (cfg.seed, epoch). An `epoch_N` checkpoint
 holds the step counters, so a run resumed from it draws exactly what the
 uninterrupted run would have.
 
+With `loader_workers > 0` an HDF5 training set is read by that many worker
+processes (`data/parallel_loader.py`), as in the JAX package; a dataset
+without `spawn_spec` (the synthetic one) is read in-process.
+
 Not ported yet: the CE baselines `Run`/`RunLegacy` (they need CapBaseline1
 and CapModel). Options that need unported parts raise NotImplementedError
-naming their ROADMAP item (queue 1): GloVe embeddings (`use_glove`, item 7),
-the loader's worker pool (`loader_workers > 0`, item 4), and meshes or more
-than one process (data parallelism, item 6).
+naming their ROADMAP item (queue 1): GloVe embeddings (`use_glove`, item 7)
+and meshes or more than one process (data parallelism, item 6).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from dlsg_tpu_torch import checkpoint as ckpt
 from dlsg_tpu_torch.config import DLSGConfig, apply_dataset_overrides
 from dlsg_tpu_torch.data.loader import eval_batches, train_batches
+from dlsg_tpu_torch.data.parallel_loader import WorkerPool
 from dlsg_tpu_torch.data.prefetch import prefetch_to_device
 from dlsg_tpu_torch.device import DeviceLike, resolve_device
 from dlsg_tpu_torch.evaluation.decode import make_decode_fn
@@ -62,11 +66,6 @@ def _refuse_unported(cfg: DLSGConfig) -> None:
     if cfg.use_glove:
         raise NotImplementedError(
             "use_glove: GloVe embeddings are not ported yet (ROADMAP queue 1, item 7)"
-        )
-    if cfg.loader_workers > 0:
-        raise NotImplementedError(
-            "loader_workers > 0: the loader's worker pool is not ported yet "
-            "(ROADMAP queue 1, item 4); use loader_workers=0"
         )
     if cfg.mesh_data_axis > 1 or cfg.mesh_model_axis > 1 or _world_size() > 1:
         raise NotImplementedError(
@@ -106,6 +105,7 @@ class _TrainerBase:
         self.test_reference = test_reference
         self.base_name = cfg.base_name()
         self.stopwatch = Stopwatch()
+        self._worker_pool: Optional[WorkerPool] = None  # started by the first epoch that needs it
         self._trace = None  # the torch.profiler trace of cfg.profile_dir, while on
         self.last_epoch = -1
         # "latest" resolves to the highest epoch_N checkpoint on disk, or a
@@ -143,15 +143,30 @@ class _TrainerBase:
         batch["captions"] = batch["captions"][:, : self.cfg.max_words]
         return batch
 
+    def _host_batches(self, epoch: int):
+        """The epoch's host batches: from the worker pool when
+        cfg.loader_workers > 0 and the dataset can be rebuilt in a worker
+        (`spawn_spec`), else in-process. The pool starts once and persists
+        across epochs; `_close_loader` stops it."""
+        cfg = self.cfg
+        if cfg.loader_workers > 0 and hasattr(self.train_dataset, "spawn_spec"):
+            if self._worker_pool is None:
+                self._worker_pool = WorkerPool(
+                    self.train_dataset, cfg.train_batch_size, num_workers=cfg.loader_workers
+                )
+            return self._worker_pool.epoch_batches(seed=cfg.seed, epoch=epoch)
+        return train_batches(self.train_dataset, cfg.train_batch_size, seed=cfg.seed, epoch=epoch)
+
+    def _close_loader(self) -> None:
+        if self._worker_pool is not None:
+            self._worker_pool.close()
+            self._worker_pool = None
+
     def _batches(self, epoch: int):
         """The epoch's shuffled training batches, prefetched to the device.
         The caller closes the generator."""
-        cfg = self.cfg
-        host = (
-            self._slice_batch(b)
-            for b in train_batches(self.train_dataset, cfg.train_batch_size, seed=cfg.seed, epoch=epoch)
-        )
-        return prefetch_to_device(host, self.device, stage_dtype=cfg.stage_dtype)
+        host = (self._slice_batch(b) for b in self._host_batches(epoch))
+        return prefetch_to_device(host, self.device, stage_dtype=self.cfg.stage_dtype)
 
     def _run_eval(self, epoch: int, global_step: int):
         with self.stopwatch.span("eval"):
@@ -225,6 +240,12 @@ class RunGAN(_TrainerBase):
             self.last_epoch = restored["epoch"]
 
     def train(self) -> ResultHandler:
+        try:
+            return self._train_epochs()
+        finally:
+            self._close_loader()  # the worker pool, also when a step raises
+
+    def _train_epochs(self) -> ResultHandler:
         cfg = self.cfg
         total_step = max(1, len(self.train_dataset) // cfg.train_batch_size)
         loss_count = loss_count_g = loss_count_d = 0.0

@@ -12,14 +12,17 @@ within 1e-4 of each other. The train path runs no kernel; its card-only
 tests hold matmul_f32's gradients (bf16 operands, cast back to bf16: one
 bf16 ulp, rtol 2^-7) and one tiny GAN step's Adam moments (fp32, 1e-4 of
 each tensor's max-abs) against the CPU. The trainer's prefetcher (pinned
-host slots, side-stream copies) must deliver every batch bitwise."""
+host slots, side-stream copies) must deliver every batch bitwise. The
+two-pass decode (fp32, both kernels) gives the single pass's token ids."""
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
 import torch
 
 from dlsg_tpu_torch.config import tiny_test_config
-from dlsg_tpu_torch.evaluation.decode import make_decode_fn
+from dlsg_tpu_torch.evaluation.decode import _make_beam_from_feats, make_decode_fn
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB
 from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain, lstm_scan_plan, max_hidden
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB
@@ -36,6 +39,7 @@ from dlsg_tpu_torch.ops.linear import matmul_f32
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer
 from dlsg_tpu_torch.train.steps import make_gan_train_step
+from dlsg_tpu_torch.vocab import END_ID
 
 pytestmark = pytest.mark.cuda
 
@@ -183,6 +187,33 @@ def test_tiny_decode_on_card_matches_cpu(card, fused):
     ids = gpu(frames, regions)
     assert LSTM_LIB.launches == before + 2
     assert ids.cpu().tolist() == cpu(frames, regions).tolist()
+
+
+def test_two_pass_decode_on_card_matches_single_pass(card):
+    """fp32, both kernels on: as <end>'s bias rises, no row, some rows (the
+    compacted pass 2) or all rows finish within t1 = 4 steps; the two-pass
+    decode gives the single pass's token ids in every case."""
+    cfg = tiny_test_config(use_pallas_lstm=True, use_fused_vocab_head="on", test_batch_size=8,
+                           max_words=10, beam_size=3)
+    model = CapGnnModel(cfg, 50, device=card)
+    rng = np.random.default_rng(6)
+    fr = torch.from_numpy(rng.normal(size=(8, cfg.max_frames, cfg.feature_size)).astype(np.float32)).to(card)
+    rg = torch.from_numpy(rng.normal(size=(8, cfg.max_frames, cfg.num_obj, cfg.region_feature_size))
+                          .astype(np.float32)).to(card)
+    single = make_decode_fn(model, cfg, device=card)
+    two = make_decode_fn(model, replace(cfg, decode_two_pass_t1=4, decode_two_pass_bucket=4), device=card)
+    beam_feats = _make_beam_from_feats(model, cfg, cfg.beam_size)
+    bias = model.get_parameter("decoder.step.word_restore.bias")
+    base = float(bias.detach()[END_ID])
+    branches = set()
+    for added in np.linspace(0.0, 12.0, 25):
+        with torch.no_grad():
+            bias[END_ID] = base + float(added)
+        with torch.inference_mode():
+            unfinished = int((~beam_feats(*model.encode(fr, rg), 4)[3]).sum())
+        branches.add("none" if unfinished == 0 else "bucket" if unfinished <= 4 else "full batch")
+        assert torch.equal(two(fr, rg), single(fr, rg)), (added, unfinished)
+    assert branches == {"none", "bucket", "full batch"}, branches
 
 
 @pytest.mark.parametrize("shapes", [((12, 24), (24, 8)), ((3, 12, 24), (3, 24, 8))])

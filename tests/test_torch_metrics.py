@@ -1,9 +1,9 @@
 """dlsg_tpu_torch's caption metrics against dlsg_tpu's.
 
-The port has the Python implementations only; the JAX package takes its C++
-tokenizer and METEOR aligner where they are built, which
-tests/test_native.py holds to the same Python code at 1e-12. Scores are
-compared within 1e-9 on every key, corpus and per video."""
+Both packages take their C++ tokenizer and METEOR aligner for ASCII text
+(tests/test_native.py and tests/test_torch_native.py hold each to its
+Python code). Scores are compared within 1e-9 on every key, corpus and per
+video."""
 
 import numpy as np
 import pytest
@@ -102,7 +102,8 @@ def test_meteor_custom_tables_are_the_jax_parser(tmp_path):
     before = meteor.score_pair("a blorp plays the lute", ["a zint plays the guitar"])
     try:
         counts = meteor.load_paraphrase_file(str(path), min_score=0.5)
-        assert counts == {"word_pairs": 1, "phrase_pairs": 1, "lines_skipped": 3}
+        assert counts == {"word_pairs": 1, "phrase_pairs": 1, "lines_skipped": 3,
+                          "native_synced": 1}
         assert meteor.get_paraphrase_table() == {"blorp": {"zint"}, "zint": {"blorp"}}
         assert meteor.get_phrase_table() == {"big dog": {"hound"}, "hound": {"big dog"}}
         assert meteor.score_pair("a blorp plays the lute", ["a zint plays the guitar"]) > before

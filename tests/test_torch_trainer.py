@@ -208,15 +208,16 @@ def test_one_gan_epoch_writes_everything_and_serves_its_best_model(tmp_path):
 def test_unported_options_raise(tmp_path):
     for kw, match in (
         (dict(use_glove=True), "item 7"),
-        (dict(loader_workers=2), "item 4"),
         (dict(mesh_data_axis=2), "item 6"),
         (dict(mesh_model_axis=2), "item 6"),
         (dict(use_pallas_lstm=True), "no backward"),
     ):
         with pytest.raises((NotImplementedError, ValueError), match=match):
             _gan_runner(tmp_path, 1, **kw)
-    with pytest.raises(NotImplementedError, match="two-pass"):
-        _gan_runner(tmp_path, 1, decode_two_pass_t1=4)
+    # ported since: the worker pool (item 4; the synthetic set is read
+    # in-process, as in JAX) and the two-pass decode (item 5)
+    r = _gan_runner(tmp_path, 1, loader_workers=2, decode_two_pass_t1=4)
+    assert r.cfg.loader_workers == 2 and r.decode_fn.__name__ == "decode_two_pass"
 
 
 def test_profile_dir_traces_steps_and_stopwatch_reports(tmp_path, monkeypatch):

@@ -94,8 +94,8 @@ def test_vocab_matches_jax():
 
 def test_package_imports_no_jax():
     """Importing the port and every submodule (the train, trainer, data,
-    metrics and CLI modules among them) pulls in no jax, flax or dlsg_tpu
-    module."""
+    metrics, CLI, server, convert, native and worker-pool modules among
+    them) pulls in no jax, flax or dlsg_tpu module."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
@@ -108,7 +108,8 @@ def test_package_imports_no_jax():
         for m in ("models.discriminator", "ops.losses", "train.optim", "train.gan_lambda",
                   "train.schedule", "train.steps", "train.trainer", "checkpoint", "cli",
                   "data.loader", "data.datasets", "data.prefetch", "evaluation.evaluate",
-                  "metrics.scorer", "metrics.meteor", "utils.profiler"):
+                  "metrics.scorer", "metrics.meteor", "utils.profiler", "server", "convert",
+                  "native", "data.parallel_loader"):
             assert "dlsg_tpu_torch." + m in sys.modules, m
         print("imported", len([n for n in sys.modules if n.startswith("dlsg_tpu_torch")]))
         """
