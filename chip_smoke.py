@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive dlsg_tpu_torch's beam-5 serving path (the Captioner, the two-pass
 decode, the HTTP server, `cli serve`/`export`), its GAN train step, its
-trainer and its C++ scorer on one NVIDIA GPU.
+trainer, its C++ scorer and its data parallelism on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -86,9 +86,28 @@ line per phase:
    --bundle --features --output` (its lines must equal caption()'s) and
    `cli evaluate --torch_checkpoint` of a reference-schema .pt written here,
    at tiny dims on the card with both kernel switches on;
+6d. data_parallel (parallel/dist.py; the card's machine has one card, and
+   NCCL puts no two ranks on one card): (a) the main path, `python -m
+   torch.distributed.run --nproc_per_node=1 chip_smoke.py --cli-rank DIR
+   train --distributed ...`, which runs `cli.main` (the `-m
+   dlsg_tpu_torch.cli` entry point) in the rank and records its kernel
+   launches, the gradient all-reduces (CUDA-event ms, bytes) and the eval
+   gathers: `cli train --synthetic` at MSR-VTT widths (bf16, fused vocab
+   head, 10 000 words, 2 GAN steps of batch 64, 2 evals, checkpoints on)
+   over NCCL at world size 1, then the same command without a process group
+   and the same seed: the epoch_0 checkpoints must be equal bitwise (NCCL's
+   sum over one rank is exact) and so must every logged loss and score;
+   the vocab head must launch on the tensor-core tiles in each eval, the
+   LSTM kernel never. (b) `--gan-rank`: one GAN step at MSR-VTT widths,
+   fp32, dropout off, epsilon 1, fixed penalty weights, lr 1e-7, over two
+   ranks x 64 on the one card over gloo against one process x 128: the two
+   ranks' parameters must be equal bitwise and their Adam first moments
+   within train_card_vs_cpu's fp32 tolerance of the single process's. Its
+   line gives each run's seconds and step ms, the gradient bytes and
+   all-reduce ms per GAN step, the gather seconds and peak memory;
 7. the `kernels` line (times, bounds, launches on each path: serving,
-   two_pass, server, train, trainer, cli_serve), the nvidia-smi line, and
-   as the last line
+   two_pass, server, train, trainer, cli_serve, data_parallel), the
+   nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -105,6 +124,8 @@ import contextlib
 import io
 import json
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -208,6 +229,15 @@ TWO_PASS_REGIMES = (("random", None), ("mixed", (0.25, 0.75)), ("bucket", (0.78,
 # features; 64 clips would come close to MAX_BODY_BYTES), a JSON body of 2
 # and a greedy .npz of 8
 SERVER_CLIPS = 32
+# the data_parallel phase. (a): `cli train` at MSR-VTT widths, 43 synthetic
+# videos x 3 captions = 2 GAN steps of batch 64 and, by saving_schedule(0, 2),
+# an eval of the 43 clips after each, checkpoints on; (b): one GAN step of
+# 2 ranks x DP_RANK_BATCH against 1 x 2 DP_RANK_BATCH
+DP_FLAGS = ["--dataset", "msr-vtt", "--compute_dtype", "bfloat16", "--use_fused_vocab_head", "on",
+            "--synthetic", "--synthetic_videos", "43", "--synthetic_vocab", str(VOCAB),
+            "--train_batch_size", "64", "--test_batch_size", "64", "--epoch_num", "1", "--no_debug"]
+DP_RANK_BATCH = 64
+DP_TIMEOUT = 600  # seconds, each torchrun or cli process
 
 
 def emit(obj) -> None:
@@ -1332,6 +1362,274 @@ def phase_cli_serve() -> dict:
     return result
 
 
+# ------------------------------------------------------------ data parallel
+
+
+def run_command(argv, timeout: float, env=None):
+    """(returncode, stdout, stderr) of a command in a session of its own;
+    at `timeout` the whole session is killed (torchrun and its ranks)."""
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True, env=env)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, out, err
+
+
+def _torchrun(nproc: int):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), str(Path(__file__).resolve())]
+
+
+def cli_rank(out_dir: str, argv) -> int:
+    """One process of the data_parallel phase's `cli train` (module doc,
+    item 6d): `cli.main(argv)` with every kernel's launch count read over
+    it, each gradient all-reduce timed by CUDA events (no sync added) and
+    sized, each eval gather timed; written to out_dir/rank_<RANK>.json."""
+    from dlsg_tpu_torch.train import steps as steps_mod
+
+    eval_mod = sys.modules["dlsg_tpu_torch.evaluation.evaluate"]
+    reduces, gathers = [], []
+    real_reduce, real_gather = steps_mod.all_reduce_grads, eval_mod.gather_eval
+
+    def timed_reduce(grads):
+        grads = list(grads)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_reduce(grads)
+        end.record()
+        reduces.append((start, end, sum(g.numel() * g.element_size() for g in grads)))
+        return out
+
+    def timed_gather(*args):
+        t = time.perf_counter()
+        out = real_gather(*args)
+        gathers.append(time.perf_counter() - t)
+        return out
+
+    steps_mod.all_reduce_grads, eval_mod.gather_eval = timed_reduce, timed_gather
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rc = cli.main(list(argv))
+        seconds = time.perf_counter() - t
+        torch.cuda.synchronize()
+    finally:
+        steps_mod.all_reduce_grads, eval_mod.gather_eval = real_reduce, real_gather
+    result = {"rc": rc, "seconds": seconds, "launches": read_launches(),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "all_reduce": [[s.elapsed_time(e), n] for s, e, n in reduces], "gather_s": gathers}
+    with open(os.path.join(out_dir, f"rank_{os.environ.get('RANK', '0')}.json"), "w") as f:
+        json.dump(result, f)
+    return rc
+
+
+def _same_checkpoint(a, b, path="") -> list:
+    """The paths at which two loaded checkpoints differ (tensors bitwise)."""
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        same = torch.is_tensor(a) and torch.is_tensor(b) and a.dtype == b.dtype \
+            and a.shape == b.shape and torch.equal(a, b)
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [f"{path}: keys"]
+        return [p for k in a for p in _same_checkpoint(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) and len(a) == len(b):
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _same_checkpoint(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def _scalars(result_dir: str) -> list:
+    (log,) = Path(result_dir).glob("*/logs/scalars.jsonl")
+    return [(s["tag"], s["value"], s["step"]) for s in map(json.loads, log.read_text().splitlines())]
+
+
+def dp_gan_step(rows: slice, device) -> dict:
+    """The data_parallel phase's GAN step (module doc, item 6d) on the given
+    rows of the global batch: MSR-VTT widths, fp32, dropout off, epsilon 1,
+    fixed penalty weights, lr MOMENT_CHECK_LR. Returns the models, states,
+    the step's ms and its gradient all-reduces' ms."""
+    from dlsg_tpu_torch.train import steps as steps_mod
+
+    cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="float32"))
+    gen = torch.Generator().manual_seed(SEED)
+    G = CapGnnModel(cfg, VOCAB, generator=gen, device=device)
+    D = DiscV2(cfg, VOCAB, generator=gen, device=device)
+    n = 2 * DP_RANK_BATCH
+    batch = {k: v[rows] for k, v in train_batch(cfg, n, VOCAB, SEED + 41, device).items()}
+    eps_gp = torch.from_numpy(np.random.default_rng(SEED + 42).uniform(size=(cfg.num_D_visual, n))[:, rows])
+    gs = TrainState.create(G, make_optimizer(MOMENT_CHECK_LR))
+    ds = TrainState.create(D, make_optimizer(MOMENT_CHECK_LR))
+    step = make_gan_train_step(G, D, cfg)
+    real_reduce, reduce_ms = steps_mod.all_reduce_grads, []
+
+    def timed_reduce(grads):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_reduce(grads)
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    saved = linear_mod.dropout
+    linear_mod.dropout = lambda x, rate, rng: x
+    steps_mod.all_reduce_grads = timed_reduce
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gs, ds, _, m = step(gs, ds, init_lambda_state(LAMBDA0, device=device), batch, TRAIN_KEY, 1.0,
+                            eps_gp=eps_gp)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        linear_mod.dropout, steps_mod.all_reduce_grads = saved, real_reduce
+    return {"G": G, "D": D, "gs": gs, "ds": ds, "metrics": _finite_metrics(m), "step_ms": step_ms,
+            "all_reduce_ms": reduce_ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _moments(run: dict) -> dict:
+    return {**{f"G.{k}": v for k, v in run["gs"].first_moments().items()},
+            **{f"D.{k}": v for k, v in run["ds"].first_moments().items()}}
+
+
+def gan_rank(work: str) -> None:
+    """One of the two ranks on one card over gloo (module doc, item 6d):
+    its half of the global batch, then its Adam first moments against the
+    single process's (work/single_moments.pt) and a digest of its
+    parameters; written to work/gan_rank_<RANK>.json."""
+    import hashlib
+
+    from dlsg_tpu_torch.parallel import dist
+
+    device = dist.init_distributed(f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE, backend="gloo")
+    try:
+        r = dist.rank()
+        run = dp_gan_step(slice(r * DP_RANK_BATCH, (r + 1) * DP_RANK_BATCH), device)
+        want = torch.load(os.path.join(work, "single_moments.pt"), map_location=device, weights_only=True)
+        worst, bad = 0.0, []
+        for name, got in _moments(run).items():
+            w = want[name]
+            scale = float(w.abs().max())
+            ratio = float((got - w).abs().max()) / scale if scale else float(got.abs().max())
+            worst = max(worst, ratio)
+            if ratio > MOMENT_TOL["float32"] or ((scale == 0) != (float(got.abs().max()) == 0)):
+                bad.append(f"{name}: {ratio}")
+        digest = hashlib.sha256()
+        for model in (run["G"], run["D"]):
+            for t in model.state_dict().values():
+                digest.update(t.detach().cpu().numpy().tobytes())
+        digests = [None] * dist.world_size()
+        torch.distributed.all_gather_object(digests, digest.hexdigest())
+        result = {"rank": r, "device": str(device), "step_ms": run["step_ms"],
+                  "all_reduce_ms": run["all_reduce_ms"], "peak_mem_gb": run["peak_mem_gb"],
+                  "metrics": run["metrics"], "moments_worst_share_of_max_abs": worst,
+                  "moments_off": bad[:8], "params_equal_across_ranks": len(set(digests)) == 1}
+        with open(os.path.join(work, f"gan_rank_{r}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_data_parallel() -> dict:
+    """(a) `cli train` under torchrun at world size 1 (NCCL) against the same
+    command without a process group; (b) two ranks on the one card over gloo
+    against one process (module doc, item 6d)."""
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")  # the same cuBLAS setup for both
+
+    # ---- (a) the main path: torchrun ... cli train --distributed, NCCL, world size 1 ----
+    runs = {}
+    for name, launcher, extra in (("nccl_world_1", _torchrun(1), ["--distributed"]),
+                                  ("no_group", [sys.executable, str(Path(__file__).resolve())], [])):
+        out_dir = os.path.join(work.name, name)
+        os.makedirs(out_dir)
+        argv = ["train", "--result_dir", os.path.join(out_dir, "results"),
+                "--device", DEVICE] + DP_FLAGS + extra
+        t = time.perf_counter()
+        rc, out, err = run_command(launcher + ["--cli-rank", out_dir] + argv, DP_TIMEOUT, env)
+        if rc != 0:
+            raise AssertionError(f"data_parallel {name}: rc {rc}\n{out[-3000:]}\n{err[-3000:]}")
+        with open(os.path.join(out_dir, "rank_0.json")) as f:
+            runs[name] = json.load(f)
+        steps = re.search(r"train_step: total ([\d.]+)s over (\d+) spans", out)
+        runs[name].update(wall_s=time.perf_counter() - t,
+                          train_step_ms=1e3 * float(steps[1]) / int(steps[2]),
+                          checkpoint=os.path.join(out_dir, "results", "checkpoints", "epoch_0",
+                                                  ckpt_mod.TRAIN_FILE),
+                          scalars=_scalars(os.path.join(out_dir, "results")))
+    dist_run, plain = runs["nccl_world_1"], runs["no_group"]
+    launches = dist_run["launches"]
+    diff = _same_checkpoint(*(torch.load(r["checkpoint"], map_location="cpu", weights_only=True)
+                              for r in (dist_run, plain)))
+    if diff:
+        raise AssertionError(f"data_parallel (a): the epoch_0 checkpoints differ at {diff[:8]}")
+    if dist_run["scalars"] != plain["scalars"] or not any(t.startswith("results/")
+                                                         for t, _, _ in plain["scalars"]):
+        raise AssertionError("data_parallel (a): the logged losses or scores differ")
+    evals = len(dist_run["gather_s"])
+    per_step = 1 + DLSGConfig().num_D_visual  # G's update and each D substep's
+    gan_steps = len(dist_run["all_reduce"]) // per_step
+    if evals < 1 or gan_steps < 1 or launches["lstm_scan"] or \
+            not evals <= launches["vocab_head"] <= evals * DLSGConfig().max_words or \
+            launches["vocab_head[tensor_cores]"] != launches["vocab_head"]:
+        raise AssertionError(f"data_parallel (a): {evals} evals, {gan_steps} GAN steps, {launches}")
+    reduce_ms = [sum(ms for ms, _ in dist_run["all_reduce"][i * per_step:(i + 1) * per_step])
+                 for i in range(gan_steps)]
+    grad_bytes = sum(n for _, n in dist_run["all_reduce"][:per_step])
+    del runs
+
+    # ---- (b) two ranks on the one card over gloo against one process ----
+    torch.cuda.empty_cache()
+    single = dp_gan_step(slice(0, 2 * DP_RANK_BATCH), DEVICE)
+    torch.save({k: v.detach() for k, v in _moments(single).items()},
+               os.path.join(work.name, "single_moments.pt"))
+    single = {k: single[k] for k in ("step_ms", "peak_mem_gb", "metrics")}
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rc, out, err = run_command(_torchrun(2) + ["--gan-rank", work.name], DP_TIMEOUT)
+    ranks_s = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"data_parallel (b): rc {rc}\n{out[-3000:]}\n{err[-3000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work.name, f"gan_rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    verdicts = [(r["params_equal_across_ranks"], r["moments_off"]) for r in ranks]
+    if not all(equal and not off for equal, off in verdicts):
+        raise AssertionError(f"data_parallel (b): (parameters equal, moments off) per rank: {verdicts}")
+    work.cleanup()
+
+    result = {
+        "phase": "data_parallel",
+        "a": {"config": "cli train --synthetic, msr-vtt, bf16, fused vocab head, batch 64, "
+                        f"{VOCAB} words; torchrun world size 1 (NCCL) against no process group",
+              "checkpoint_and_logs": "bitwise equal", "gan_steps": gan_steps, "evals": evals,
+              "wall_s": [dist_run["wall_s"], plain["wall_s"]],
+              "cli_main_s": [dist_run["seconds"], plain["seconds"]],
+              "train_step_ms": [dist_run["train_step_ms"], plain["train_step_ms"]],
+              "grad_bytes_all_reduced_per_gan_step": grad_bytes,
+              "all_reduce_ms_per_gan_step": reduce_ms,
+              "gather_s": dist_run["gather_s"],
+              "peak_mem_gb": [dist_run["peak_mem_gb"], plain["peak_mem_gb"]],
+              "launches": launches},
+        "b": {"config": f"GAN step, msr-vtt, fp32, 2 ranks x {DP_RANK_BATCH} on one card over gloo "
+                        f"against 1 x {2 * DP_RANK_BATCH}, lr {MOMENT_CHECK_LR}",
+              "torchrun_s": ranks_s, "single": single,
+              "ranks": [{k: r[k] for k in ("device", "step_ms", "all_reduce_ms", "peak_mem_gb",
+                                           "moments_worst_share_of_max_abs")} for r in ranks],
+              "params_equal_across_ranks": True, "tolerance": MOMENT_TOL["float32"]},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    result["launches"] = launches
+    return result
+
 
 def main() -> None:
     info = phase_device()
@@ -1363,6 +1661,8 @@ def main() -> None:
         VOCAB, TRAINER_VIDEOS,
     )
     launches["launches_trainer"] = trainer["launches"]
+    torch.cuda.empty_cache()
+    launches["launches_data_parallel"] = phase_data_parallel()["launches"]
     phase_scorer(references, captions, scorer_build_s)
     launches["launches_cli_serve"] = phase_cli_serve()["launches"]
     for key, entry in checks:
@@ -1374,4 +1674,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    # the data_parallel phase runs these two under torchrun or alone
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--gan-rank"]:
+        gan_rank(sys.argv[2])
+        sys.exit(0)
     main()

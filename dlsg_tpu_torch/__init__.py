@@ -27,6 +27,8 @@ Subpackages
                    with scoring, best-result tracking
 - ``checkpoint`` : best-model and per-epoch training checkpoints, resume
 - ``convert``    : reference-trained torch .pt -> this package's state_dict
+- ``parallel``   : data parallelism over torch.distributed (one process per
+                   card): gradient all-reduce, global-batch sums, eval gather
 - ``utils``      : scalar logging, Stopwatch and torch.profiler traces,
                    attention heatmaps
 - ``serve``      : load-once Captioner (bucketed batches, warmup)

@@ -20,6 +20,9 @@ package's names and defaults, and these:
   --synthetic            the hermetic synthetic dataset instead of the
                          MSVD/MSR-VTT feature files
   --synthetic_videos N   its number of videos (32)
+  --synthetic_vocab N    its vocabulary's size: the built-in words, then
+                         w0, w1, ... up to N words (default: the built-in
+                         words alone)
   --no_debug             save models and checkpoints
   --resume_epoch N|latest, --resume (= --resume_epoch latest)
   --metric NAME          evaluate/serve/export: the saved model to load
@@ -35,9 +38,17 @@ package's names and defaults, and these:
                          (metrics/meteor.py; set through the
                          DLSG_METEOR_*_FILE environment variables)
   --device DEV           where to run (cuda); --device cpu runs on the CPU
+  --distributed          train/evaluate: one process per card, as torchrun
+                         starts them (parallel/dist.py; NCCL on cards, gloo
+                         with --device cpu):
+                           torchrun --nproc_per_node=N -m dlsg_tpu_torch.cli train --distributed ...
+                         Each rank trains on its shard with train_batch_size
+                         rows a step, and evaluates its shard before the
+                         gather; only rank 0 prints, logs and saves
 
 Not ported yet (exit 2): `train-base`, `train-legacy` (ROADMAP queue 1,
-item 7).
+item 7); `serve`/`export --distributed` (multi-card serving comes with the
+model axis, item 6b).
 """
 
 from __future__ import annotations
@@ -64,13 +75,20 @@ _METEOR_FILES = (
 )
 
 
-def _build_datasets(cfg, synthetic: bool, synthetic_videos: int = 32, eval_only: bool = False):
+def _synthetic_vocab(size):
+    from dlsg_tpu_torch.data.synthetic import make_vocab
+
+    return make_vocab(extra_words=max(0, size - len(make_vocab()))) if size else make_vocab()
+
+
+def _build_datasets(cfg, synthetic: bool, synthetic_videos: int = 32, eval_only: bool = False,
+                    synthetic_vocab: int = 0):
     """(vocab, train set, eval set, test references). `eval_only` (serve)
     skips the caption training set and the reference file."""
     if synthetic:
-        from dlsg_tpu_torch.data.synthetic import SyntheticDataset, make_vocab
+        from dlsg_tpu_torch.data.synthetic import SyntheticDataset
 
-        vocab = make_vocab()
+        vocab = _synthetic_vocab(synthetic_vocab)
         train_ds = SyntheticDataset(cfg, vocab, num_videos=synthetic_videos)
         return vocab, train_ds, train_ds.eval_view(), train_ds.references
 
@@ -87,11 +105,9 @@ def _build_datasets(cfg, synthetic: bool, synthetic_videos: int = 32, eval_only:
     return vocab, train_ds, eval_ds, reference
 
 
-def _vocab_only(cfg, synthetic: bool):
+def _vocab_only(cfg, synthetic: bool, synthetic_vocab: int = 0):
     if synthetic:
-        from dlsg_tpu_torch.data.synthetic import make_vocab
-
-        return make_vocab()
+        return _synthetic_vocab(synthetic_vocab)
     from dlsg_tpu_torch.vocab import Vocabulary
 
     return Vocabulary.load_reference_pkl(cfg.vocab_pkl_path)
@@ -126,6 +142,8 @@ def _parser() -> argparse.ArgumentParser:
     extra = argparse.ArgumentParser(add_help=False)
     extra.add_argument("--synthetic", action="store_true")
     extra.add_argument("--synthetic_videos", type=int, default=32)
+    extra.add_argument("--synthetic_vocab", type=int, default=0,
+                       help="the synthetic vocabulary's size (default: its built-in words)")
     extra.add_argument("--no_debug", action="store_true", help="enable model saving")
     extra.add_argument(
         "--resume_epoch", type=str, default=None,
@@ -176,6 +194,10 @@ def _parser() -> argparse.ArgumentParser:
         extra.add_argument(f"--{flag}", type=str, default=None, metavar="PATH",
                            help="an official METEOR resource (metrics/meteor.py)")
     extra.add_argument("--device", type=str, default="cuda")
+    extra.add_argument(
+        "--distributed", action="store_true",
+        help="train/evaluate: join the torchrun process group (one process per card)",
+    )
     return extra
 
 
@@ -222,19 +244,40 @@ def main(argv=None) -> int:
     if extra_ns.torch_checkpoint and not os.path.isfile(extra_ns.torch_checkpoint):
         print(f"--torch_checkpoint: no such file: {extra_ns.torch_checkpoint}", file=sys.stderr)
         return 2
-    device = _device(extra_ns.device)
+    if extra_ns.distributed and command in ("serve", "export"):
+        print(
+            f"{command} --distributed: multi-card serving is not ported yet; it comes "
+            "with the model axis (ROADMAP queue 1, item 6b)",
+            file=sys.stderr,
+        )
+        return 2
+    if not extra_ns.distributed:
+        return _run(command, cfg, extra_ns, _device(extra_ns.device))
 
+    import torch.distributed
+
+    from dlsg_tpu_torch.parallel import dist
+
+    device = dist.init_distributed(_device(extra_ns.device))  # before any model is built
+    try:
+        return _run(command, cfg, extra_ns, device)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _run(command, cfg, extra_ns, device) -> int:
     if command == "train":
         from dlsg_tpu_torch.train.trainer import RunGAN
 
         vocab, train_ds, eval_ds, reference = _build_datasets(
-            cfg, extra_ns.synthetic, extra_ns.synthetic_videos
+            cfg, extra_ns.synthetic, extra_ns.synthetic_videos,
+            synthetic_vocab=extra_ns.synthetic_vocab,
         )
         runner = RunGAN(
             cfg, vocab, train_ds, eval_ds, reference,
             is_debug=not extra_ns.no_debug, resume_epoch=extra_ns.resume_epoch, device=device,
         )
-        runner.train()
+        runner.train()  # this rank's shard of each epoch
         return 0
     if command == "evaluate":
         return _evaluate(cfg, extra_ns, device)
@@ -247,17 +290,24 @@ def _evaluate(cfg, extra_ns, device) -> int:
     from dlsg_tpu_torch.data.loader import eval_batches
     from dlsg_tpu_torch.evaluation.decode import make_decode_fn
     from dlsg_tpu_torch.evaluation.evaluate import evaluate
+    from dlsg_tpu_torch.parallel import dist
 
-    vocab, _, eval_ds, reference = _build_datasets(cfg, extra_ns.synthetic, extra_ns.synthetic_videos)
+    vocab, _, eval_ds, reference = _build_datasets(
+        cfg, extra_ns.synthetic, extra_ns.synthetic_videos, synthetic_vocab=extra_ns.synthetic_vocab
+    )
     model = _load_generator(cfg, vocab, extra_ns, device)
     decode_fn = make_decode_fn(model, cfg, device=device)
+    # each rank decodes its shard; the gather merges them on every rank
     scores, _, _, t = evaluate(
-        decode_fn, eval_batches(eval_ds, cfg.test_batch_size), vocab, reference,
-        stage_dtype=cfg.stage_dtype,
+        decode_fn,
+        eval_batches(eval_ds, cfg.test_batch_size, shard_index=dist.rank(),
+                     num_shards=dist.world_size()),
+        vocab, reference, stage_dtype=cfg.stage_dtype,
     )
-    for k, v in scores.items():
-        print(f"{k}: {100 * v:.6f}")
-    print(f"inference time: {t:.3f}s")
+    if dist.is_leader():
+        for k, v in scores.items():
+            print(f"{k}: {100 * v:.6f}")
+        print(f"inference time: {t:.3f}s")
     return 0
 
 
@@ -265,7 +315,7 @@ def _export(cfg, extra_ns, device) -> int:
     from dlsg_tpu_torch.bundle import save_bundle
     from dlsg_tpu_torch.weights import params_to_jax
 
-    vocab = _vocab_only(cfg, extra_ns.synthetic)
+    vocab = _vocab_only(cfg, extra_ns.synthetic, extra_ns.synthetic_vocab)
     model = _load_generator(cfg, vocab, extra_ns, device)
     out = extra_ns.output or "model.dlsg.npz"
     save_bundle(out, cfg, vocab, params_to_jax(model.state_dict()))
@@ -288,10 +338,11 @@ def _serve(cfg, extra_ns, device) -> int:
         cfg = captioner.cfg  # the bundle's config drives serving
     else:
         if extra_ns.features or extra_ns.listen:
-            vocab = _vocab_only(cfg, extra_ns.synthetic)
+            vocab = _vocab_only(cfg, extra_ns.synthetic, extra_ns.synthetic_vocab)
         else:
             vocab, _, eval_ds, _ = _build_datasets(
-                cfg, extra_ns.synthetic, extra_ns.synthetic_videos, eval_only=True
+                cfg, extra_ns.synthetic, extra_ns.synthetic_videos, eval_only=True,
+                synthetic_vocab=extra_ns.synthetic_vocab,
             )
         model = _load_generator(cfg, vocab, extra_ns, device)
         captioner = Captioner.from_params(cfg, vocab, model.state_dict(), fast=extra_ns.fast,

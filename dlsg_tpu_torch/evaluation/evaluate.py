@@ -5,8 +5,14 @@ tokens into strings, score them with the COCO scorer, and return
 
 The decode function comes from `evaluation/decode.py::make_decode_fn`; it
 reads the model's parameters as they are when it is called, so the trainer
-passes no parameters. The cross-host gather of a multi-process eval is not
-ported yet (data parallelism, ROADMAP queue 1, item 6).
+passes no parameters.
+
+Data parallelism: each rank decodes its shard (`eval_batches(...,
+shard_index=rank, num_shards=world)`) on its own card, with no collective
+inside the decode, so the fused vocab head and the per-step early exit stay
+on (the JAX package drops both under a mesh, whose decode is one sharded
+program); the gather then merges the shards on every rank
+(parallel/dist.py::gather_eval), and every rank scores the whole set.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from dlsg_tpu_torch.data.prefetch import stage_cast
 from dlsg_tpu_torch.metrics.scorer import COCOScorer
+from dlsg_tpu_torch.parallel.dist import gather_eval
 from dlsg_tpu_torch.vocab import Vocabulary
 
 
@@ -45,7 +52,13 @@ def evaluate(
     alpha_all is [N, T, 2P] fp32 when decode_fn returns (ids, alpha) (built
     with return_alpha=True), else None. Batch k+1's decode is launched before
     batch k's tokens are copied to the host; results are consumed in order.
-    `stage_dtype` is the input_stage_dtype policy (cfg.stage_dtype)."""
+    `stage_dtype` is the input_stage_dtype policy (cfg.stage_dtype).
+
+    Inside a process group (the JAX package's `cross_host_gather`),
+    `eval_iter` is this rank's shard, and the decoded shards are merged
+    across the ranks before scoring, so every rank returns the same scores
+    and captions (an empty shard still joins the gather). Without a group
+    the gather is the identity."""
     ids_chunks, vid_chunks, alpha_chunks = [], [], []
     start = time.time()
 
@@ -80,6 +93,7 @@ def evaluate(
         ids_all = np.zeros((0, 0), np.int64)
         vids_all = np.zeros((0,), np.int64)
         alpha_all = None
+    ids_all, vids_all, alpha_all = gather_eval(ids_all, vids_all, alpha_all)
     infer_time = time.time() - start
 
     result: "OrderedDict[str, str]" = OrderedDict(

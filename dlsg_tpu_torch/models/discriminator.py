@@ -11,7 +11,10 @@ Kept reference quirk: PSLScore2 ends with a mean over the batch of an
 already per-sample score, and DiscV2 broadcasts the two scalar head scores
 back through the per-sample fusion weights. With `groups > 1` the batch is
 that many independent sub-batches stacked (real | fake in one pass) and the
-mean is taken per sub-batch.
+mean is taken per sub-batch. Under a process group (parallel/dist.py) the
+batch is the global one, as under the JAX package's mesh: the row sum goes
+through `global_sum`, whose backward all-reduces the upstream gradient, so
+the gradient at a rank's rows is that of the global batch's.
 
 Dropout (0.3 at every site, hard-coded as in the JAX package) runs in
 training mode when the forward is given a generator `rng`.
@@ -40,6 +43,7 @@ from dlsg_tpu_torch.models.layers import (
 from dlsg_tpu_torch.ops.linear import Dense, Dropout, LayerNorm, init_parameters
 from dlsg_tpu_torch.ops.lstm import LSTMSequence
 from dlsg_tpu_torch.ops.topk import top_k
+from dlsg_tpu_torch.parallel.dist import global_rows, global_sum
 
 
 class _PSLHead(nn.Module):
@@ -92,9 +96,11 @@ class PSLScore2(_PSLHead):
         adj_alpha = adj.sum(dim=1)  # [B, K]
         score = self.score(psl_topk, a, adj, rng)
         score = (score * adj_alpha).sum(-1) / adj_alpha.sum(-1)  # [B]
-        if groups > 1:
-            return score.reshape(groups, -1).mean(dim=1)  # [groups]
-        return score.mean(dim=-1)
+        # the mean over the global batch, group by group: group g of the
+        # global batch is the g-th block of every rank
+        n = score.shape[0] // groups
+        mean = global_sum(score.reshape(groups, n).sum(dim=1)) / global_rows(n)  # [groups]
+        return mean if groups > 1 else mean[0]
 
 
 class PSLScore(_PSLHead):
@@ -189,8 +195,10 @@ class DiscV2(nn.Module):
         sent_sum = self.text_sum(att_out, rng).squeeze(1)  # [B, dim]
         fusion_score = torch.softmax(sent_sum @ self.fusion.t(), dim=-1)  # [B, 2]
         if groups > 1:
-            # each sub-batch's mean score over its rows
+            # each sub-batch's mean score over its rows; an expand, whose
+            # backward is a sum (repeat_interleave's adds atomically on a
+            # card, in an order that changes from run to run)
             n_per = inputs.shape[0] // groups
-            obj_score = obj_score.repeat_interleave(n_per)
-            motion_score = motion_score.repeat_interleave(n_per)
+            obj_score = obj_score[:, None].expand(groups, n_per).reshape(-1)
+            motion_score = motion_score[:, None].expand(groups, n_per).reshape(-1)
         return obj_score * fusion_score[:, 0] + motion_score * fusion_score[:, 1]

@@ -8,7 +8,9 @@ keeps both:
 - flax `nn.Dense(dtype=bf16)` returns bf16: `Dense` here.
 
 `dropout` is flax's `nn.Dropout` on an explicit generator; `Dropout` is a
-site of it inside a module.
+site of it inside a module. Under a process group each rank draws its mask
+as its block of one draw over the ranks (parallel/dist.py): the ranks' masks
+are independent, and world size 1 draws the single-process mask.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dlsg_tpu_torch.parallel.dist import rank_block_rand
 
 # torch nn.LayerNorm's default eps, pinned on every LayerNorm of the model
 LN_EPS = 1e-5
@@ -84,14 +88,15 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> tor
     """flax `nn.Dropout`: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate); identity when `rng` is None
     (deterministic) or rate is 0. The mask is drawn from `rng`, a generator
-    on x's device, never from the global RNG. Every dropout site of the
-    package calls this one function."""
+    on x's device, never from the global RNG, as this rank's block
+    (`rank_block_rand`). Every dropout site of the package calls this one
+    function."""
     if rng is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    mask = rank_block_rand(x.shape, rng, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -11,6 +11,13 @@
 - generator adversarial loss -mean(D(fake)) (run_gun.py:219);
 - the proposal diversity margin loss (run_gun.py:322-336, unused by the
   reference training loop).
+
+Under a process group (parallel/dist.py) each batch loss is this rank's
+share of the global loss: its local sum over the global count (tokens for
+the CE, rows elsewhere). The ranks' gradients then sum to the gradient of
+the global loss, as the JAX package's losses over a mesh-sharded batch
+give. A mean of per-rank means would differ from it once the ranks hold
+different token counts. Without a group, the share is the loss itself.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from dlsg_tpu_torch.parallel.dist import global_rows, global_sum
 
 # WGAN-GP penalty weight (run_gun.py:372-375), for every D-loss site
 GP_WEIGHT = 10.0
@@ -33,11 +42,18 @@ def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 def masked_cross_entropy(
     logits: torch.Tensor, targets: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:
-    """Mean CE over the valid positions, in fp32."""
+    """Mean CE over the valid positions of the global batch, in fp32 (this
+    rank's share: its token losses over the global token count)."""
     mask = length_mask(lengths, targets.shape[1])
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]  # [B, T]
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / global_sum(mask.sum()).clamp_min(1.0)
+
+
+def batch_share(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the global batch mean of `x` [B]: its sum over
+    the global row count."""
+    return x.sum() / global_rows(x.shape[0])
 
 
 def to_onehot(seq: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -49,7 +65,7 @@ def to_onehot(seq: torch.Tensor, vocab_size: int) -> torch.Tensor:
 def _penalty(grads: torch.Tensor) -> torch.Tensor:
     # the norm accumulates in fp32: a bf16 sum of ~260k squares loses it
     norm = grads.reshape(grads.shape[0], -1).float().norm(dim=1)
-    return ((norm - 1.0) ** 2).mean()
+    return batch_share((norm - 1.0) ** 2)
 
 
 def _requiring_grad(x: torch.Tensor) -> torch.Tensor:
@@ -78,8 +94,8 @@ def wgan_d_loss(
     gp_weight: float = GP_WEIGHT,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Discriminator loss f - r + 10 gp: (loss, {"wasserstein": r - f, "gp"})."""
-    r_loss = d_fn(real).mean()
-    f_loss = d_fn(fake).mean()
+    r_loss = batch_share(d_fn(real))
+    f_loss = batch_share(d_fn(fake))
     gp = gradient_penalty(d_fn, real, fake, eps)
     return f_loss - r_loss + gp_weight * gp, {"wasserstein": r_loss - f_loss, "gp": gp}
 
@@ -97,16 +113,16 @@ def wgan_d_loss_fused(
     B = real.shape[0]
     mixed = _requiring_grad(real * eps + fake * (1.0 - eps))
     scores = d_fn3(torch.cat([real, fake, mixed], dim=0))
-    r_loss = scores[:B].mean()
-    f_loss = scores[B : 2 * B].mean()
+    r_loss = batch_share(scores[:B])
+    f_loss = batch_share(scores[B : 2 * B])
     (grads,) = torch.autograd.grad(scores[2 * B :].sum(), mixed, create_graph=True)
     gp = _penalty(grads)
     return f_loss - r_loss + gp_weight * gp, {"wasserstein": r_loss - f_loss, "gp": gp}
 
 
 def wgan_g_loss(f_logit: torch.Tensor) -> torch.Tensor:
-    """Generator adversarial loss: -mean(D(fake))."""
-    return -f_logit.mean()
+    """Generator adversarial loss: -mean(D(fake)) over the global batch."""
+    return -batch_share(f_logit)
 
 
 def psl_diversity_loss(psl: torch.Tensor, margin: float = 0.0) -> torch.Tensor:

@@ -84,13 +84,15 @@ class Captioner:
         vocab: Vocabulary,
         ckpt_dir: Optional[str] = None,
         name: str = "best_CIDEr",
+        fast: bool = False,
         device: DeviceLike = None,
     ) -> "Captioner":
         """Load the generator a trainer saved as `name` (best_CIDEr,
-        best_Bleu_4) under `ckpt_dir` (default cfg.checkpoint_dir)."""
+        best_Bleu_4) under `ckpt_dir` (default cfg.checkpoint_dir); `fast`
+        as in the constructor."""
         device = resolve_device(device)
         params = restore_model(ckpt_dir or cfg.checkpoint_dir, name, device=device)
-        return cls(cfg, vocab, params, device=device)
+        return cls(cfg, vocab, params, fast=fast, device=device)
 
     @classmethod
     def from_bundle(cls, path: str, fast: bool = False, device: DeviceLike = None) -> "Captioner":

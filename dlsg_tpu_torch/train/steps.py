@@ -14,6 +14,16 @@ loss never writes G's. A step's random draws (dropout masks, the
 scheduled-sampling coins, the penalty's mixing weights) come from one
 `torch.Generator` on the models' device, seeded from (key, step). The steps
 switch the models to training mode and restore their modes after.
+
+Data parallelism (parallel/dist.py): on every rank the losses are that
+rank's shares of the global batch's losses (ops/losses.py), each gradient
+list is summed over the ranks before its update (`all_reduce_grads`, one
+collective: DDP's reducer hooks `.backward()` and would see nothing of
+`torch.autograd.grad`), so the optimizer's elementwise clamp sees the global
+gradient as optax's chain does. The lambda state machine is fed the global
+cap loss and the metrics are global, so every rank keeps the same state.
+Every rank runs the same collectives in the same order. Without a process
+group all of this is the single-process step.
 """
 
 from __future__ import annotations
@@ -28,11 +38,13 @@ from torch import nn
 from dlsg_tpu_torch.config import DLSGConfig
 from dlsg_tpu_torch.ops.losses import (
     GP_WEIGHT,
+    batch_share,
     gradient_penalty,
     masked_cross_entropy,
     to_onehot,
     wgan_g_loss,
 )
+from dlsg_tpu_torch.parallel.dist import all_reduce_grads, global_sum, rank_block_rand
 from dlsg_tpu_torch.train.gan_lambda import LambdaState, lambda_update
 from dlsg_tpu_torch.train.optim import TrainState
 
@@ -78,10 +90,12 @@ def _batch(batch: Mapping[str, Any], device) -> List[torch.Tensor]:
 
 
 def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """d loss / d params; a parameter the loss does not reach gets zeros,
-    as under jax.grad."""
+    """d (global loss) / d params: this rank's gradient of its share, summed
+    over the ranks; a parameter the loss does not reach gets zeros, as under
+    jax.grad."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return all_reduce_grads(grads)
 
 
 def make_ce_train_step(model: nn.Module, cfg: DLSGConfig):
@@ -96,7 +110,8 @@ def make_ce_train_step(model: nn.Module, cfg: DLSGConfig):
             out, *_ = model(frames, regions, captions, epsilon, rng=rng)
         loss = masked_cross_entropy(out, captions, lengths)
         state.apply_gradients(_grads(loss, state.params))
-        return state, {"cap_loss": loss.detach(), "sample_tokens": out[0].detach().argmax(-1)}
+        return state, {"cap_loss": global_sum(loss.detach()),
+                       "sample_tokens": out[0].detach().argmax(-1)}
 
     return step
 
@@ -115,7 +130,9 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
     second forward with its own draw. Both `cfg.gan_gp_custom_vjp` values
     take the one penalty implementation (ops/losses.py). Metrics are device
     tensors: cap_loss, loss_G, loss_D, wasserstein and grad_penalty (the
-    last three averaged over the substeps), gan_lambda, sample_tokens."""
+    last three averaged over the substeps), global over the ranks;
+    gan_lambda; sample_tokens (this rank's first row). Under a process group
+    `eps_gp` holds this rank's rows."""
     vocab_size = gen_model.vocab_size
     num_d = cfg.num_D_visual
     single_fwd = cfg.gan_single_forward
@@ -152,12 +169,12 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
             d_stats = []
             for i in range(num_d):
                 if eps_gp is None:
-                    eps = torch.rand(B, 1, 1, generator=rng, device=dev)
+                    eps = rank_block_rand((B, 1, 1), rng, dev)
                 else:
                     eps = torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev)
                 eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
                 scores = disc_model(real_fake, obj2, mot2, att2, alpha2, groups=2, rng=rng)
-                r_loss, f_loss = scores[:B].mean(), scores[B:].mean()
+                r_loss, f_loss = batch_share(scores[:B]), batch_share(scores[B:])
                 gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
                 loss_d = f_loss - r_loss + GP_WEIGHT * gp
                 disc_state.apply_gradients(_grads(loss_d, disc_state.params))
@@ -171,12 +188,15 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
             cap_loss = masked_cross_entropy(out, captions, lengths)
             loss_g = wgan_g_loss(disc_model(out, obj, mot, att_mask, alpha, rng=rng))
 
-        lstate, gan_lambda = lambda_update(lstate, cap_loss)
+        # the global losses in one collective: cap, G, then the substeps' D stats
+        totals = global_sum(torch.cat([torch.stack([cap_loss, loss_g]).detach(),
+                                       torch.stack(d_stats).reshape(-1)]))
+        lstate, gan_lambda = lambda_update(lstate, totals[0])
         gen_state.apply_gradients(_grads(cap_loss + gan_lambda * loss_g, gen_state.params))
-        loss_d, wasserstein, gp = torch.stack(d_stats).mean(dim=0)
+        loss_d, wasserstein, gp = totals[2:].reshape(num_d, 3).mean(dim=0)
         metrics = {
-            "cap_loss": cap_loss.detach(),
-            "loss_G": loss_g.detach(),
+            "cap_loss": totals[0],
+            "loss_G": totals[1],
             "loss_D": loss_d,
             "wasserstein": wasserstein,
             "grad_penalty": gp,

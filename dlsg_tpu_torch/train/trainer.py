@@ -16,14 +16,24 @@ With `loader_workers > 0` an HDF5 training set is read by that many worker
 processes (`data/parallel_loader.py`), as in the JAX package; a dataset
 without `spawn_spec` (the synthetic one) is read in-process.
 
+Data parallelism: inside a process group (parallel/dist.py, one process
+per card as `torchrun` starts them) each rank trains on its shard of every
+epoch (the rank and world size come from the group) with the
+global-batch steps of train/steps.py, and evaluates its shard of the eval
+set before the gather; every rank scores the merged set. Only the leader
+(rank 0) prints, logs, plots, traces and saves; every rank waits at a
+barrier after each save point. `train_batch_size` is the per-rank batch, as
+the per-host batch is in the JAX package.
+
 Not ported yet: the CE baselines `Run`/`RunLegacy` (they need CapBaseline1
 and CapModel). Options that need unported parts raise NotImplementedError
 naming their ROADMAP item (queue 1): GloVe embeddings (`use_glove`, item 7)
-and meshes or more than one process (data parallelism, item 6).
+and the mesh's model axis (`mesh_model_axis > 1`, item 6b).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Dict, Optional, Union
@@ -42,6 +52,7 @@ from dlsg_tpu_torch.evaluation.evaluate import evaluate
 from dlsg_tpu_torch.evaluation.results import ResultHandler
 from dlsg_tpu_torch.models.discriminator import DiscV2
 from dlsg_tpu_torch.models.generator import CapGnnModel
+from dlsg_tpu_torch.parallel import dist
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer, multistep_lr
 from dlsg_tpu_torch.train.schedule import saving_schedule, scheduled_sampling_epsilon
@@ -56,21 +67,25 @@ D_LR_MILESTONES = (1, 4)  # run_gun.py:99
 LR_GAMMA = 0.5
 
 
-def _world_size() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
 def _refuse_unported(cfg: DLSGConfig) -> None:
     if cfg.use_glove:
         raise NotImplementedError(
             "use_glove: GloVe embeddings are not ported yet (ROADMAP queue 1, item 7)"
         )
-    if cfg.mesh_data_axis > 1 or cfg.mesh_model_axis > 1 or _world_size() > 1:
+    if cfg.mesh_model_axis > 1:
         raise NotImplementedError(
-            "a mesh or more than one process: data parallelism is not ported "
-            "yet (ROADMAP queue 1, item 6)"
+            "mesh_model_axis > 1: the model axis (tensor parallelism) is not "
+            "ported yet (ROADMAP queue 1, item 6b)"
+        )
+    if not dist.is_distributed() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError(
+            "WORLD_SIZE > 1 but no process group: pass --distributed (or call "
+            "parallel.init_distributed) in every process"
+        )
+    if cfg.mesh_data_axis not in (-1, dist.world_size()):
+        raise ValueError(
+            f"mesh_data_axis={cfg.mesh_data_axis}: the data axis is the world size "
+            f"({dist.world_size()}); leave it at -1"
         )
     if cfg.use_pallas_lstm:
         raise ValueError(
@@ -104,6 +119,7 @@ class _TrainerBase:
         self.eval_dataset = eval_dataset
         self.test_reference = test_reference
         self.base_name = cfg.base_name()
+        self.is_leader = dist.is_leader()
         self.stopwatch = Stopwatch()
         self._worker_pool: Optional[WorkerPool] = None  # started by the first epoch that needs it
         self._trace = None  # the torch.profiler trace of cfg.profile_dir, while on
@@ -112,7 +128,7 @@ class _TrainerBase:
         # fresh start when there is none
         if resume_epoch == "latest":
             resume_epoch = ckpt.latest_epoch(cfg.checkpoint_dir)
-            print(
+            self._print(
                 f"auto-resume: latest checkpoint epoch = {resume_epoch}"
                 if resume_epoch is not None
                 else "auto-resume: no checkpoint found, starting fresh"
@@ -125,9 +141,16 @@ class _TrainerBase:
             self.base_name,
             results_root=cfg.result_dir,
             beam_list=[cfg.beam_size],
+            is_leader=self.is_leader,
             is_debug=is_debug,
         )
-        self.writer = MetricsWriter(log_dir=f"{cfg.result_dir}/{self.base_name}/logs")
+        self.writer = MetricsWriter(
+            log_dir=f"{cfg.result_dir}/{self.base_name}/logs", enabled=self.is_leader
+        )
+
+    def _print(self, *args) -> None:
+        if self.is_leader:
+            print(*args)
 
     def _gen_optimizer(self):
         """Generator optimizer; freezes the word embedding when configured
@@ -144,28 +167,31 @@ class _TrainerBase:
         return batch
 
     def _host_batches(self, epoch: int):
-        """The epoch's host batches: from the worker pool when
+        """The epoch's host batches of this rank's shard: from the worker pool when
         cfg.loader_workers > 0 and the dataset can be rebuilt in a worker
         (`spawn_spec`), else in-process. The pool starts once and persists
         across epochs; `_close_loader` stops it."""
         cfg = self.cfg
+        shard = dict(seed=cfg.seed, epoch=epoch, shard_index=dist.rank(),
+                     num_shards=dist.world_size())
         if cfg.loader_workers > 0 and hasattr(self.train_dataset, "spawn_spec"):
             if self._worker_pool is None:
                 self._worker_pool = WorkerPool(
                     self.train_dataset, cfg.train_batch_size, num_workers=cfg.loader_workers
                 )
-            return self._worker_pool.epoch_batches(seed=cfg.seed, epoch=epoch)
-        return train_batches(self.train_dataset, cfg.train_batch_size, seed=cfg.seed, epoch=epoch)
+            return self._worker_pool.epoch_batches(**shard)
+        return train_batches(self.train_dataset, cfg.train_batch_size, **shard)
 
     def _close_loader(self) -> None:
         if self._worker_pool is not None:
             self._worker_pool.close()
             self._worker_pool = None
 
-    def _batches(self, epoch: int):
-        """The epoch's shuffled training batches, prefetched to the device.
-        The caller closes the generator."""
-        host = (self._slice_batch(b) for b in self._host_batches(epoch))
+    def _batches(self, epoch: int, steps: int):
+        """The epoch's first `steps` shuffled training batches of this rank's
+        shard, prefetched to the device. The caller closes the generator."""
+        host = itertools.islice(self._host_batches(epoch), steps)
+        host = (self._slice_batch(b) for b in host)
         return prefetch_to_device(host, self.device, stage_dtype=self.cfg.stage_dtype)
 
     def _run_eval(self, epoch: int, global_step: int):
@@ -177,13 +203,14 @@ class _TrainerBase:
         t0 = time.time()
         scores, results, alpha_all, infer_time = evaluate(
             self.decode_fn,
-            eval_batches(self.eval_dataset, cfg.test_batch_size),
+            eval_batches(self.eval_dataset, cfg.test_batch_size,
+                         shard_index=dist.rank(), num_shards=dist.world_size()),
             self.vocab,
             self.test_reference,
             stage_dtype=cfg.stage_dtype,
         )
-        print(f"evaluate time: {time.time() - t0:.3f}s (inference {infer_time:.3f}s)")
-        if alpha_all is not None:
+        self._print(f"evaluate time: {time.time() - t0:.3f}s (inference {infer_time:.3f}s)")
+        if alpha_all is not None and self.is_leader:
             # heatmap of the first clip's proposal attention (run_gun.py:455-465)
             first_vid, first_cap = next(iter(results.items()))
             plot_alpha_all(
@@ -238,8 +265,15 @@ class RunGAN(_TrainerBase):
             if restored["gan_lambda_state"] is not None:
                 self.lambda_state = restored["gan_lambda_state"]
             self.last_epoch = restored["epoch"]
+        # every rank starts from rank 0's weights (they are equal already:
+        # the same seed, or the same checkpoint)
+        for model in (self.gen_model, self.disc_model):
+            if model is not None:
+                dist.broadcast_module(model)
 
     def train(self) -> ResultHandler:
+        """Train from `last_epoch + 1` to `cfg.epoch_num`, inside a process
+        group on this rank's shard of every epoch."""
         try:
             return self._train_epochs()
         finally:
@@ -247,7 +281,10 @@ class RunGAN(_TrainerBase):
 
     def _train_epochs(self) -> ResultHandler:
         cfg = self.cfg
-        total_step = max(1, len(self.train_dataset) // cfg.train_batch_size)
+        # every rank runs exactly `steps` steps: a rank whose shard holds one
+        # more batch would enter a collective alone and hang
+        steps = len(self.train_dataset) // cfg.train_batch_size // dist.world_size()
+        total_step = max(1, steps)
         loss_count = loss_count_g = loss_count_d = 0.0
 
         for epoch in range(self.last_epoch + 1, cfg.epoch_num):
@@ -258,9 +295,9 @@ class RunGAN(_TrainerBase):
             self.gen_state.set_learning_rate(g_lr)
             if self.use_visual_gan:
                 self.disc_state.set_learning_rate(d_lr)
-            print(f"Epoch-{epoch} lr: {g_lr}")
+            self._print(f"Epoch-{epoch} lr: {g_lr}")
             if self.use_visual_gan:
-                print(f"Epoch-{epoch} lr visual GAN: {d_lr}")
+                self._print(f"Epoch-{epoch} lr visual GAN: {d_lr}")
             schedule = saving_schedule(epoch, total_step, cfg.dataset)
             epsilon = scheduled_sampling_epsilon(cfg.ss_factor, epoch, "msvd")
 
@@ -295,14 +332,13 @@ class RunGAN(_TrainerBase):
                     if self.use_visual_gan:
                         msg += f", loss_G: {loss_count_g / n:.4f}, loss_D: {loss_count_d / n:.4f}"
                     loss_count = loss_count_g = loss_count_d = 0.0
-                    print(msg)
-                    we = self.vocab.decode_tokens(_host(metrics["sample_tokens"]))
-                    gt = self.vocab.decode_tokens(_host(caps[0]))
-                    print(f"[vid:{vid0}]")
-                    print(f"WE: {we}\nGT: {gt}")
+                    if self.is_leader:
+                        we = self.vocab.decode_tokens(_host(metrics["sample_tokens"]))
+                        gt = self.vocab.decode_tokens(_host(caps[0]))
+                        print(f"{msg}\n[vid:{vid0}]\nWE: {we}\nGT: {gt}")
 
             pending = None
-            batches = self._batches(epoch)
+            batches = self._batches(epoch, steps)
             try:
                 for i, batch in enumerate(batches, start=1):
                     if cfg.dataset == "msr-vtt":  # per-step variant (run_gun.py:149-151)
@@ -313,7 +349,7 @@ class RunGAN(_TrainerBase):
                     step_batch = {k: batch[k] for k in ("frames", "regions", "captions", "lengths")}
 
                     # trace of steps 3..5 of the first epoch this run trains
-                    if (cfg.profile_dir and self._trace is None
+                    if (cfg.profile_dir and self.is_leader and self._trace is None
                             and epoch == self.last_epoch + 1 and i == 3):
                         self._trace = start_trace(cfg.profile_dir)
                     with self.stopwatch.span("train_step"):
@@ -339,14 +375,15 @@ class RunGAN(_TrainerBase):
                             _consume(pending)
                             pending = None
                         scores, trigger = self._run_eval(epoch, global_step)
-                        if trigger and self.result_handler.save_enabled:
-                            ckpt.save_model(cfg.checkpoint_dir, f"best_{trigger}",
-                                            self.gen_model.state_dict())
-                        if self.result_handler.save_enabled:
+                        if self.is_leader and self.result_handler.save_enabled:
+                            if trigger:
+                                ckpt.save_model(cfg.checkpoint_dir, f"best_{trigger}",
+                                                self.gen_model.state_dict())
                             ckpt.save_train(
                                 cfg.checkpoint_dir, epoch, self.gen_state, self.disc_state,
                                 lambda_state=self.lambda_state,
                             )
+                        dist.barrier()  # no rank runs ahead of a checkpoint being written
             finally:
                 batches.close()
 
@@ -356,8 +393,8 @@ class RunGAN(_TrainerBase):
             if self._trace is not None:  # the epoch had < 5 batches
                 self._stop_trace()
             self.result_handler.print_results()
-            print(f"*******One epoch time: {time.time() - start_time:.3f}s*******")
-            print(self.stopwatch.report() + "\n")
+            self._print(f"*******One epoch time: {time.time() - start_time:.3f}s*******")
+            self._print(self.stopwatch.report() + "\n")
         return self.result_handler
 
     def _stop_trace(self) -> None:

@@ -22,10 +22,12 @@ from dlsg_tpu.models.generator import CapGnnModel as JaxCapGnnModel
 from dlsg_tpu.ops.pallas.lstm_scan import lstm_scan_pallas
 from dlsg_tpu.serve import Captioner as JaxCaptioner
 from dlsg_tpu.vocab import Vocabulary as JaxVocabulary
+from dlsg_tpu_torch import checkpoint as ckpt
 from dlsg_tpu_torch.config import tiny_test_config
 from dlsg_tpu_torch.evaluation.decode import make_decode_fn
 from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.serve import Captioner
+from dlsg_tpu_torch.vocab import Vocabulary
 from dlsg_tpu_torch.weights import params_from_jax
 from test_torch_train_steps import one_torch_thread  # noqa: F401  (autouse)
 
@@ -108,3 +110,22 @@ def test_jax_bundle_captions_match(setup, tmp_path, stage):
     fast = Captioner.from_bundle(path, fast=True, device="cpu")  # exact top-k all the same
     assert fast.caption(frames, regions) == tc.caption(frames, regions)
     assert tc.warmup() == len(tc.bucket_sizes()) and tc.warm
+
+
+def test_from_checkpoint_takes_fast(setup, tmp_path):
+    """Captioner.from_checkpoint(fast=True), as dlsg_tpu's: the JAX
+    package's approximate-top-k recall in the config, the same captions
+    (this package always takes the exact top-k)."""
+    params, frames, regions = setup
+    words = [f"w{i}" for i in range(V - 4)]
+    ckpt.save_model(str(tmp_path), "best_CIDEr", params_from_jax(params))
+    cfg = replace(tiny_test_config(), beam_size=3)
+    fast = Captioner.from_checkpoint(cfg, Vocabulary.from_words(words), ckpt_dir=str(tmp_path),
+                                     fast=True, device="cpu")
+    exact = Captioner.from_checkpoint(cfg, Vocabulary.from_words(words), ckpt_dir=str(tmp_path),
+                                      device="cpu")
+    jfast = JaxCaptioner(replace(jax_tiny(), beam_size=3), JaxVocabulary.from_words(words), params,
+                         fast=True)
+    assert fast.cfg.decode_approx_topk == jfast.cfg.decode_approx_topk == 0.95
+    assert exact.cfg.decode_approx_topk == cfg.decode_approx_topk
+    assert fast.caption(frames, regions) == exact.caption(frames, regions) == jfast.caption(frames, regions)

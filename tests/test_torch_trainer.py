@@ -208,12 +208,14 @@ def test_one_gan_epoch_writes_everything_and_serves_its_best_model(tmp_path):
 def test_unported_options_raise(tmp_path):
     for kw, match in (
         (dict(use_glove=True), "item 7"),
-        (dict(mesh_data_axis=2), "item 6"),
-        (dict(mesh_model_axis=2), "item 6"),
+        (dict(mesh_data_axis=2), "the data axis is the world size"),
+        (dict(mesh_model_axis=2), "item 6b"),
         (dict(use_pallas_lstm=True), "no backward"),
     ):
         with pytest.raises((NotImplementedError, ValueError), match=match):
             _gan_runner(tmp_path, 1, **kw)
+    # the data axis is the world size: one process, 1 or -1
+    assert _gan_runner(tmp_path, 1, mesh_data_axis=1).cfg.mesh_data_axis == 1
     # ported since: the worker pool (item 4; the synthetic set is read
     # in-process, as in JAX) and the two-pass decode (item 5)
     r = _gan_runner(tmp_path, 1, loader_workers=2, decode_two_pass_t1=4)
@@ -234,6 +236,6 @@ def test_profile_dir_traces_steps_and_stopwatch_reports(tmp_path, monkeypatch):
     assert r.stopwatch.counts["train_step"] == 8 and r.stopwatch.counts["eval"] == 2
     assert "train_step" in r.stopwatch.report()
     assert not (tmp_path / "results" / "checkpoints").exists()  # is_debug: no saves
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    monkeypatch.setenv("WORLD_SIZE", "2")  # torchrun's env without --distributed
+    with pytest.raises(RuntimeError, match="--distributed"):
         RunGAN(cfg, vocab, ds, ds.eval_view(), ds.references, device="cpu")

@@ -2,6 +2,8 @@
 device selection."""
 
 import dataclasses
+import importlib
+import inspect
 import subprocess
 import sys
 import textwrap
@@ -95,7 +97,8 @@ def test_vocab_matches_jax():
 def test_package_imports_no_jax():
     """Importing the port and every submodule (the train, trainer, data,
     metrics, CLI, server, convert, native and worker-pool modules among
-    them) pulls in no jax, flax or dlsg_tpu module."""
+    them, and the data-parallel module) pulls in no jax, flax or dlsg_tpu
+    module."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
@@ -109,7 +112,7 @@ def test_package_imports_no_jax():
                   "train.schedule", "train.steps", "train.trainer", "checkpoint", "cli",
                   "data.loader", "data.datasets", "data.prefetch", "evaluation.evaluate",
                   "metrics.scorer", "metrics.meteor", "utils.profiler", "server", "convert",
-                  "native", "data.parallel_loader"):
+                  "native", "data.parallel_loader", "parallel.dist"):
             assert "dlsg_tpu_torch." + m in sys.modules, m
         print("imported", len([n for n in sys.modules if n.startswith("dlsg_tpu_torch")]))
         """
@@ -181,3 +184,35 @@ def test_jsonable_id_matches_jax():
     for vid in (np.int64(7001), 3, "video7001", np.str_("v1")):
         assert jsonable_id(vid) == jax_jsonable_id(vid)
         assert type(jsonable_id(vid)) is type(jax_jsonable_id(vid))
+
+
+# JAX exports with no counterpart of the same name: the mesh helpers (the
+# port's parallel/ is torch.distributed), ParallelBatcher (the port's worker
+# pool is data/parallel_loader.py::WorkerPool) and the baseline generators
+# (ROADMAP queue 1, item 7a)
+NOT_EXPORTED = {
+    "parallel": {"make_mesh", "batch_sharding", "replicated", "shard_batch"},
+    "data": {"ParallelBatcher"},
+    "models": {"CapModel", "CapBaselineModel", "CapBaseline1"},
+}
+
+
+@pytest.mark.parametrize("sub", ["data", "evaluation", "metrics", "models", "parallel", "train", "utils"])
+def test_subpackage_exports_match_jax(sub):
+    """Every function or class a dlsg_tpu subpackage's __init__ re-exports
+    from its modules is exported by the port's subpackage under the same
+    name as the same kind, apart from NOT_EXPORTED."""
+    jmod = importlib.import_module(f"dlsg_tpu.{sub}")
+    tmod = importlib.import_module(f"dlsg_tpu_torch.{sub}")
+    exported = {
+        n: o for n, o in vars(jmod).items()
+        if (inspect.isfunction(o) or inspect.isclass(o)) and o.__module__.startswith(f"dlsg_tpu.{sub}.")
+    }
+    assert exported
+    for name, obj in exported.items():
+        if name in NOT_EXPORTED.get(sub, ()):
+            continue
+        got = getattr(tmod, name, None)
+        assert got is not None, f"dlsg_tpu_torch.{sub} does not export {name}"
+        assert (inspect.isclass(got), inspect.isfunction(got)) == (
+            inspect.isclass(obj), inspect.isfunction(obj)), name
