@@ -17,8 +17,11 @@ line per phase:
    library;
 3. kernel checks: each kernel against its plain PyTorch version at the
    shapes the serving path gives it (MSR-VTT widths, batch 128, beam 5); the
-   vocab head once per tile form, bf16 w (tensor cores, the serving path)
-   and fp32 w (SIMT);
+   vocab head once per tile form, bf16 w (bf16 tensor-core tiles, the
+   serving path) and fp32 w (TF32x3 tiles: three TF32 products of a hi/lo
+   split), the fp32 form's top-k logits also held within max(3 x the plain
+   fp32 product's error, 2e-6) of a float64 product, which one TF32 pass
+   fails;
 4. serving: a Captioner at MSR-VTT widths (bf16 compute, both kernel
    switches on, 10 000-word vocabulary, seeded random weights) warms every
    bucket and answers beam-5 requests of 3, 50 and 128 clips and one greedy
@@ -26,11 +29,13 @@ line per phase:
    form too) read over that run; then the
    decode time of a 128-clip batch already on the card, and the share of
    tokens that agree with the same decode through the plain versions. It
-   must be >= 99% at fp32 compute, and at bf16 with the vocab head swapped
-   alone. At bf16 with both swapped it must not fall more than 2 points
-   below the plain decode's agreement with itself under a 1e-6 input
-   perturbation: random weights give near-tied beams, and bf16 rounding
-   spreads the LSTM kernel's ulp-sized differences into different tokens;
+   must be >= 99% at fp32 compute (the vocab head on its TF32x3 tiles), and
+   at bf16 with the vocab head swapped alone. At bf16 with both swapped it
+   must not fall more than 2 points below the plain decode's agreement with
+   itself under a 1e-6 input perturbation: random weights give near-tied
+   beams, and bf16 rounding spreads the LSTM kernel's ulp-sized differences
+   into different tokens. Then the fp32 decode's time with the fused vocab
+   head on and off, in turns;
 4b. two_pass: the same weights and config with decode_two_pass_t1 = 8 and
    the default bucket (32 rows), batch 128, in three regimes: the random
    weights (every row runs to 26 tokens: pass 2 re-decodes the whole
@@ -174,6 +179,7 @@ from dlsg_tpu_torch.vocab import END_ID, Vocabulary  # noqa: E402
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 VOCAB = 10000
@@ -186,6 +192,11 @@ TOKEN_AGREEMENT_MIN = 0.99
 BF16_FLOOR_MARGIN = 0.02
 DEVICE = "cuda"
 KERNEL_TOL = 1e-3
+# the fp32 vocab head against a float64 product: within this many times the
+# plain fp32 product's error, or F64_FLOOR if that is larger (one TF32 pass
+# is ~4.6e-4 off at K1's operands)
+F64_FACTOR = 3.0
+F64_FLOOR = 2e-6
 # the train phase (bench.py's train program: lr 1.6e-4, lambda0 0.01, eps 0.9)
 TRAIN_LR = 1.6e-4
 LAMBDA0 = 0.01
@@ -404,8 +415,9 @@ def check_lstm_scan(cfg: DLSGConfig) -> dict:
 
 def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
     """K1 at the beam step's shapes: G=640 (128 x beam 5), H=1536,
-    V=10000, k=5, against vocab_head_topk_plain. bf16 w takes the
-    tensor-core tiles (the serving path), fp32 w the SIMT tiles."""
+    V=10000, k=5, against vocab_head_topk_plain. bf16 w takes the bf16
+    tensor-core tiles (the serving path), fp32 w the TF32x3 tiles, whose
+    top-k logits are also held against a float64 product."""
     G, H, k = BATCH * BEAM, cfg.decode_hidden_size, BEAM
     route = vocab_head_plan(G, VOCAB, w_dtype).route
     g = torch.Generator().manual_seed(SEED + 1)
@@ -426,6 +438,21 @@ def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
             f"vocab_head_topk ({route}) differs from its plain version: vals {err}, "
             f"{int(differ.sum())} ids differ, near-ties only: {near_tie_only}"
         )
+    fp32 = w_dtype == torch.float32
+    accuracy = {}
+    if fp32:  # fp32 accuracy: the sorted top-k logits against a float64 product's
+        want = torch.topk(h.double() @ w.double() + b.double(), k).values
+        f64_err = float((vocab_head_topk(h, w, b, k, normalize=False)[0].double() - want).abs().max())
+        plain_f64_err = float(
+            (vocab_head_topk_plain(h, w, b, k, normalize=False)[0].double() - want).abs().max()
+        )
+        f64_tol = max(F64_FACTOR * plain_f64_err, F64_FLOOR)
+        if not f64_err <= f64_tol:
+            raise AssertionError(
+                f"vocab_head_topk ({route}) is {f64_err} from a float64 product, above "
+                f"{f64_tol} (the plain fp32 product: {plain_f64_err})"
+            )
+        accuracy = {"f64_err": f64_err, "plain_f64_err": plain_f64_err, "f64_tol": f64_tol}
 
     def library():
         lg = matmul_f32(h.to(w_dtype), w) + b  # bf16: torch.mm(out_dtype=float32)
@@ -433,14 +460,17 @@ def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
 
     ops = 2.0 * G * H * VOCAB
     nbytes = h.numel() * 4 + w.numel() * w.element_size() + b.numel() * 4 + G * k * (4 + 8)
-    bms, by = bound_ms(ops, PEAK_BF16 if w_dtype == torch.bfloat16 else PEAK_FP32, nbytes)
-    w_name = "bf16" if w_dtype == torch.bfloat16 else "fp32"
+    if fp32:  # three TF32 products (hi*lo, lo*hi, hi*hi) on the tensor cores
+        bms, by = bound_ms(3 * ops, PEAK_TF32, nbytes)
+        accuracy["bound_ms_fp32_cuda_core_rate"] = bound_ms(ops, PEAK_FP32, nbytes)[0]
+    else:
+        bms, by = bound_ms(ops, PEAK_BF16, nbytes)
     return {
         "name": f"vocab_head_topk[{route}]", "route": "cuda",
         "source": "dlsg_tpu_torch/csrc/vocab_head.cu",
         "replaces": "dlsg_tpu/ops/pallas/vocab_head.py:117",
-        "shapes": f"h [{G},{H}] fp32, w [{H},{VOCAB}] {w_name}, b [{VOCAB}], k={k}",
-        "max_abs_err": err, "ids_differ": int(differ.sum()), "tolerance": KERNEL_TOL,
+        "shapes": f"h [{G},{H}] fp32, w [{H},{VOCAB}] {'fp32' if fp32 else 'bf16'}, b [{VOCAB}], k={k}",
+        "max_abs_err": err, "ids_differ": int(differ.sum()), "tolerance": KERNEL_TOL, **accuracy,
         "ms": time_ms(lambda: vocab_head_topk(h, w, b, k)),
         "plain_ms": time_ms(lambda: vocab_head_topk_plain(h, w, b, k)),
         "bound_ms": bms, "bound_by": by, "library_ms": time_ms(library),
@@ -570,12 +600,20 @@ def phase_serving(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
     model32 = CapGnnModel(cfg32, VOCAB, device=DEVICE)
     model32.load_state_dict(captioner.model.state_dict())
     decode32 = make_decode_fn(model32, cfg32, beam_size=BEAM, device=DEVICE)
-    simt0 = ROUTE_LAUNCHES["simt"]
+    tf32x3_0 = ROUTE_LAUNCHES["tf32x3"]
     ids32 = decode32(fr128, rg128)
-    simt_fp32_decode = ROUTE_LAUNCHES["simt"] - simt0  # fp32 w: the SIMT tiles
+    tf32x3_fp32_decode = ROUTE_LAUNCHES["tf32x3"] - tf32x3_0  # fp32 w: the TF32x3 tiles
     agree_fp32 = agreement(ids32, decode_plain(decode32, fr128, rg128))
     if agree_fp32 < TOKEN_AGREEMENT_MIN:
         raise AssertionError(f"fp32 token agreement with the plain versions {agree_fp32} < 0.99")
+    # the fp32 decode with the fused vocab head on (TF32x3 tiles) and off
+    # (torch.mm + top-k + logsumexp), in turns: on, off, off, on
+    decode32_off = make_decode_fn(model32, replace(cfg32, use_fused_vocab_head="off"),
+                                  beam_size=BEAM, device=DEVICE)
+    fp32_ms = {"on": [], "off": []}
+    for head in ("on", "off", "off", "on"):
+        fn = decode32 if head == "on" else decode32_off
+        fp32_ms[head].append(time_ms(lambda: fn(fr128, rg128), repeats=5, warmup=1, flush=False))
     # bf16 compute (the serving config). The vocab head alone swapped for its
     # plain version must agree as at fp32.
     agree_bf16_vocab = agreement(ids, decode_plain(decode, fr128, rg128, lstm=False))
@@ -604,7 +642,9 @@ def phase_serving(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
         "phase": "serving", "config": "msr-vtt, bf16, use_pallas_lstm, fused vocab head",
         "vocab": VOCAB, "beam": BEAM, "buckets": captioner.bucket_sizes(),
         "warmup_s": warmup_s, "requests": list(REQUESTS), "launches": launches,
-        "vocab_head_simt_launches_fp32_decode": simt_fp32_decode,
+        "vocab_head_tf32x3_launches_fp32_decode": tf32x3_fp32_decode,
+        "decode_ms_b128_fp32_fused_head_on": fp32_ms["on"],
+        "decode_ms_b128_fp32_fused_head_off": fp32_ms["off"],
         "decode_ms_b128": decode_ms, "captions_per_s": BATCH / (decode_ms / 1e3),
         "encode_ms_b128": encode_ms, "beam_steps_b128": steps, "caption_ms_b128_from_host": caption_ms,
         "token_agreement_vs_plain_fp32": agree_fp32,
@@ -1639,11 +1679,11 @@ def main() -> None:
                    use_pallas_lstm=True, use_fused_vocab_head="on")
     )
     # (key of the serving phase's launch counts, kernels line entry); the
-    # fp32-w SIMT tiles are off the bf16 serving path and count 0 there
+    # fp32-w TF32x3 tiles are off the bf16 serving path and count 0 there
     checks = [
         ("lstm_scan", check_lstm_scan(cfg)),
         ("vocab_head[tensor_cores]", check_vocab_head(cfg, torch.bfloat16)),
-        ("vocab_head[simt]", check_vocab_head(cfg, torch.float32)),
+        ("vocab_head[tf32x3]", check_vocab_head(cfg, torch.float32)),
     ]
     vocab, params = serving_model(cfg)
     launches = {"launches": phase_serving(cfg, vocab, params)["launches"]}

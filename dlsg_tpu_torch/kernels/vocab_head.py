@@ -6,9 +6,10 @@ fp32 bias; values sorted descending, ties to the lowest id (as `lax.top_k`);
 with `normalize` the exact row logsumexp is subtracted. On the card the
 [G, V] logits never reach device memory.
 
-The dtype of w alone picks the kernel's tile form: bf16 w runs the product on
-the tensor cores (h rounded to bf16 once, here), fp32 w as fp32 FMAs on the
-CUDA cores. `vocab_head_plan` gives each form's tiles, grid and shared memory.
+The dtype of w alone picks the kernel's tile form, both on the tensor cores:
+bf16 w runs one bf16 product (h rounded to bf16 once, here), fp32 w three TF32
+products of a hi/lo split of h and w that keep fp32 accuracy (route
+"tf32x3"). `vocab_head_plan` gives each form's tiles, grid and shared memory.
 """
 
 from __future__ import annotations
@@ -35,11 +36,12 @@ LIBRARY = CudaLibrary(
             ctypes.c_int,
         ),
         "vocab_head_tc_smem_bytes": ([], ctypes.c_int),
+        "vocab_head_tf32x3_smem_bytes": ([], ctypes.c_int),
         **ERROR_STRING,
     },
 )
 # launches of each tile form; each also counts in LIBRARY.launches
-ROUTE_LAUNCHES = {"tensor_cores": 0, "simt": 0}
+ROUTE_LAUNCHES = {"tensor_cores": 0, "tf32x3": 0}
 
 
 @dataclass(frozen=True)
@@ -58,22 +60,22 @@ class TilePlan:
 
 def vocab_head_plan(G: int, V: int, w_dtype: torch.dtype) -> TilePlan:
     """The tile form for w of `w_dtype` (as the constants of
-    csrc/vocab_head.cu): bf16 -> 128 x 128 tensor-core tiles, a 4-stage ring of
-    [128 x 32] h and [32 x 128] w bf16 tiles, rows padded by 8 bf16 against
-    bank conflicts, reused as the [128 x 130] fp32 logits tile; fp32 -> 64 x
-    128 SIMT tiles with a [64 x 132] fp32 logits tile (rows padded by the
-    THREADS / block_m threads that share a row in the epilogue)."""
-    n_tiles = -(-V // TILE_V)
+    csrc/vocab_head.cu). Both are 128 x 128 tiles on a (row tiles, vocab
+    tiles) grid, a 4-stage ring of [128 x 32] h and [32 x 128] w tiles reused
+    as the [128 x 130] fp32 logits tile (rows padded by the THREADS / 128
+    threads that share a row in the epilogue). bf16 -> route "tensor_cores",
+    bf16 rings with rows padded by 8 bf16 against bank conflicts; fp32 ->
+    route "tf32x3", fp32 rings with h rows padded by 4 floats and w rows by 8."""
+    bm, bk, stages = 128, 32, 4
     if w_dtype == torch.bfloat16:
-        bm, bk, stages = 128, 32, 4
-        ring = stages * (bm * (bk + 8) + bk * (TILE_V + 8)) * 2
-        return TilePlan("tensor_cores", bm, bk, stages, (-(-G // bm), n_tiles),
-                        max(ring, bm * (TILE_V + THREADS // bm) * 4))
-    if w_dtype == torch.float32:
-        bm = 64
-        return TilePlan("simt", bm, 16, 1, (n_tiles, -(-G // bm)),
-                        bm * (TILE_V + THREADS // bm) * 4)
-    raise ValueError(f"w must be bf16 or fp32, got {w_dtype}")
+        route, a_pad, b_pad, size = "tensor_cores", 8, 8, 2
+    elif w_dtype == torch.float32:
+        route, a_pad, b_pad, size = "tf32x3", 4, 8, 4
+    else:
+        raise ValueError(f"w must be bf16 or fp32, got {w_dtype}")
+    ring = stages * (bm * (bk + a_pad) + bk * (TILE_V + b_pad)) * size
+    return TilePlan(route, bm, bk, stages, (-(-G // bm), -(-V // TILE_V)),
+                    max(ring, bm * (TILE_V + THREADS // bm) * 4))
 
 
 def vocab_head_topk_plain(
@@ -97,7 +99,7 @@ def vocab_head_topk(
     or fp32, b [V]; returns (vals [G, k] fp32 descending, ids [G, k] int64).
     A CPU tensor takes `vocab_head_topk_plain`; a CUDA tensor launches the
     kernel (one tile launch and one merge launch, counted as one): with bf16 w
-    the tensor-core tiles, with fp32 w the SIMT tiles."""
+    the bf16 tensor-core tiles, with fp32 w the TF32x3 tiles."""
     if h.device.type == "cpu":
         return vocab_head_topk_plain(h, w, b, k, normalize=normalize)
     if h.device.type != "cuda":

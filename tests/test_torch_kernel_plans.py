@@ -68,13 +68,13 @@ def test_lstm_scan_plan_follows_the_card():
     [(640, 10000, torch.bfloat16, "tensor_cores", (5, 79)),  # the beam step
      (130, 2177, torch.bfloat16, "tensor_cores", (2, 18)),
      (5, 130, torch.bfloat16, "tensor_cores", (1, 2)),
-     (640, 10000, torch.float32, "simt", (79, 10)),
-     (70, 1000, torch.float32, "simt", (8, 2))],
+     (640, 10000, torch.float32, "tf32x3", (5, 79)),
+     (70, 1000, torch.float32, "tf32x3", (1, 8))],
 )
 def test_vocab_head_plan(G, V, dtype, route, grid):
     plan = vocab_head_plan(G, V, dtype)
     assert (plan.route, plan.grid) == (route, grid)
-    n_row, n_col = grid if route == "tensor_cores" else grid[::-1]
+    n_row, n_col = grid
     assert n_row * plan.block_m >= G and n_col * TILE_V >= V
     assert plan.smem_bytes <= SMEM_LIMIT
 
@@ -86,6 +86,17 @@ def test_vocab_head_plan_tensor_core_tiles():
     assert (plan.block_m, plan.block_k, plan.stages) == (128, 32, 4)
     assert plan.smem_bytes == 4 * (128 * 40 + 32 * 136) * 2 == 75776
     assert 2 * plan.smem_bytes <= SMEM_LIMIT
+
+
+def test_vocab_head_plan_tf32x3_tiles():
+    """fp32: 4 stages of [128 x 36] h + [32 x 136] w fp32 (143,360 B, rows
+    padded against bank conflicts of the scalar fragment loads), more than
+    the [128 x 130] fp32 logits tile it is reused for; one block fits an SM."""
+    plan = vocab_head_plan(640, 10000, torch.float32)
+    assert (plan.block_m, plan.block_k, plan.stages) == (128, 32, 4)
+    assert plan.smem_bytes == 4 * (128 * 36 + 32 * 136) * 4 == 143360
+    assert plan.smem_bytes > 128 * 130 * 4
+    assert plan.smem_bytes <= SMEM_LIMIT < 2 * plan.smem_bytes
 
 
 def test_vocab_head_plan_rejects_other_dtypes():

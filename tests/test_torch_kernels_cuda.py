@@ -6,9 +6,12 @@ imports none and runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: the kernels sum fp32 products in another order than cuBLAS (the
-LSTM kernel's three bf16 terms of h give the fp32 product up to that order):
-atol 1e-4 on LSTM states and top-k values; vocab ids equal except near-ties
-within 1e-4 of each other. The train path runs no kernel; its card-only
+LSTM kernel's three bf16 terms of h, and the vocab head's three TF32 products
+of hi/lo-split fp32 operands, give the fp32 product up to that order): atol
+1e-4 on LSTM states and top-k values; vocab ids equal except near-ties within
+1e-4 of each other. The fp32 vocab head is also held to fp32 accuracy: within
+max(3 x the plain fp32 product's error, 2e-6) of a float64 product, which one
+TF32 pass (about 4.6e-4) fails. The train path runs no kernel; its card-only
 tests hold matmul_f32's gradients (bf16 operands, cast back to bf16: one
 bf16 ulp, rtol 2^-7) and one tiny GAN step's Adam moments (fp32, 1e-4 of
 each tensor's max-abs) against the CPU. The trainer's prefetcher (pinned
@@ -115,8 +118,9 @@ def test_plans_state_the_kernels_shared_memory(card):
     for B, H in [(128, 1024), (37, 40), (130, 36), (640, 1024), (8, 1552)]:
         plan = lstm_scan_plan(B, H, n_sm=_n_sm(card))
         assert lstm.lstm_scan_smem_bytes(B, H, plan.units, plan.stages) == plan.smem_bytes
-    tc = vocab_head_plan(640, 10000, torch.bfloat16)
-    assert VOCAB_LIB.load().vocab_head_tc_smem_bytes() == tc.smem_bytes
+    vocab = VOCAB_LIB.load()
+    assert vocab.vocab_head_tc_smem_bytes() == vocab_head_plan(640, 10000, torch.bfloat16).smem_bytes
+    assert vocab.vocab_head_tf32x3_smem_bytes() == vocab_head_plan(640, 10000, torch.float32).smem_bytes
 
 
 @pytest.mark.parametrize(
@@ -125,13 +129,15 @@ def test_plans_state_the_kernels_shared_memory(card):
      (5, 64, 130, 5, torch.bfloat16),
      (640, 1536, 10000, 5, torch.bfloat16),  # the beam step's shapes
      (640, 1536, 10000, 5, torch.float32),
-     (200, 72, 1000, 3, torch.bfloat16)],  # aligned rows; G, H, V off every tile edge
+     (200, 72, 1000, 3, torch.bfloat16),  # aligned rows; G, H, V off every tile edge
+     (130, 200, 2177, 8, torch.float32),  # w rows not 16-byte aligned (V = 2177)
+     (5, 72, 130, 1, torch.float32)],
 )
 def test_vocab_head_kernel_matches_plain(card, G, H, V, k, dtype):
-    """bf16 w takes the tensor-core tiles, fp32 w the SIMT tiles. Off the
-    tile edges: G = 130, 5, 200 (tile 128), H = 200, 72 (k-tile 32), V =
-    2177, 130, 1000 (tile 128); H = 200 with V = 2177 has rows that are not
-    16-byte aligned."""
+    """bf16 w takes the bf16 tensor-core tiles, fp32 w the TF32x3 tiles. Off
+    the tile edges: G = 130, 5, 200 (tile 128), H = 200, 72 (k-tile 32), V =
+    2177, 130, 1000 (tile 128); V = 2177 has w rows that are not 16-byte
+    aligned (bf16 and fp32), H = 200 h rows that are not (bf16)."""
     h = _rand(G, H, seed=G).to(card)
     w = (_rand(H, V, seed=H) / H**0.5).to(card, dtype)
     b = _rand(V, seed=V).to(card)
@@ -147,6 +153,24 @@ def test_vocab_head_kernel_matches_plain(card, G, H, V, k, dtype):
         logits = h.to(dtype).float() @ w.float() + b
         gap = (logits.gather(1, ids) - logits.gather(1, pi)).abs()
         assert bool((gap[ids != pi] <= 1e-4).all())
+
+
+def test_vocab_head_fp32_keeps_fp32_accuracy(card):
+    """fp32 w at the beam step's shapes and K1's operand distributions (h =
+    tanh(N(0, 1)), w xavier-normal): the kernel's top-k logits lie within
+    max(3 x the plain fp32 product's error, 2e-6) of a float64 product's. One
+    TF32 pass misses by about 4.6e-4."""
+    G, H, V, k = 640, 1536, 10000, 5
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(np.tanh(rng.normal(size=(G, H))).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.normal(size=(H, V)) * (2.0 / (H + V)) ** 0.5).astype(np.float32)).to(card)
+    b = torch.from_numpy((rng.normal(size=V) * 0.01).astype(np.float32)).to(card)
+    want = torch.topk(h.double() @ w.double() + b.double(), k).values
+    vals, _ = vocab_head_topk(h, w, b, k, normalize=False)
+    plain, _ = vocab_head_topk_plain(h, w, b, k, normalize=False)
+    plain_err = float((plain.double() - want).abs().max())
+    err = float((vals.double() - want).abs().max())
+    assert err <= max(3 * plain_err, 2e-6), (err, plain_err)
 
 
 def test_vocab_head_ties_go_to_lowest_id(card):

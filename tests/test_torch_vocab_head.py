@@ -5,7 +5,13 @@ tests/test_vocab_head.py.
 ids must be equal. vals: both sides compute fp32 sums of the same
 (w.dtype-rounded) products, so they differ by summation order only: atol
 1e-5, bf16 weights included (tests/test_vocab_head.py allows 0.15 there
-because it compares bf16 against fp32 weights)."""
+because it compares bf16 against fp32 weights).
+
+The card's fp32 form (csrc/vocab_head.cu, route "tf32x3") runs on the CPU
+nowhere, so its precision argument is held here in a numpy emulation at
+K1's operands (h = tanh(N(0, 1)), w xavier-normal, H = 1536): operands
+split into TF32 hi + lo, three TF32 products, summed as the kernel sums
+them, within 2e-6 of float64 where one TF32 pass is not."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,3 +92,86 @@ def test_wrapper_takes_plain_version_on_cpu():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert LIBRARY.launches == before
 
+
+
+# ---- the TF32x3 split of the card's fp32 form, emulated in numpy ----
+
+F64_FLOOR = 2e-6  # chip_smoke.py's floor for the fp32 form against float64
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 fraction bits), half away from zero, as fp32:
+    cvt.rna.tf32.f32 with the 13 dropped bits zeroed."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _round_toward_zero(x):
+    """float64 -> fp32, rounded toward zero (a tensor-core mma's fp32 sum)."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _k1_operands(G=16, H=1536, V=1000, seed=3):
+    rng = np.random.default_rng(seed)
+    h = np.tanh(rng.normal(size=(G, H))).astype(np.float32)
+    w = (rng.normal(size=(H, V)) * np.sqrt(2.0 / (H + 10000))).astype(np.float32)
+    return h, w, h.astype(np.float64) @ w.astype(np.float64)
+
+
+def _mma_sums(h, w, k_tile):
+    """h @ w as the kernel runs it: per 8-deep k-step the mma's hi*lo, lo*hi
+    and hi*hi, each mma's fp32 sum rounded toward zero, into fresh sums every
+    `k_tile` of depth that are added to the accumulator round-to-nearest
+    (k_tile = H: one accumulator for all the mma)."""
+    (hh, hl), (wh, wl) = _split(h), _split(w)
+    terms = [(a.astype(np.float64), b.astype(np.float64)) for a, b in ((hh, wl), (hl, wh), (hh, wh))]
+    acc = np.zeros((h.shape[0], w.shape[1]), np.float32)
+    for k0 in range(0, h.shape[1], k_tile):
+        part = np.zeros_like(acc)
+        for k in range(k0, k0 + k_tile, 8):
+            for a, b in terms:
+                part = _round_toward_zero(part + a[:, k:k + 8] @ b[k:k + 8])
+        acc = acc + part
+    return acc
+
+
+def test_tf32_split_carries_22_bits():
+    """hi and lo are TF32 (13 low bits zero), x - hi is exact in fp32, and
+    hi + lo is within 2^-22 |x| of x; the rounding is half away from zero."""
+    x = np.random.default_rng(0).normal(size=4096).astype(np.float32) * 10.0 ** np.arange(-4, 4).repeat(512)
+    hi, lo = _split(x)
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    rest = x.astype(np.float64) - hi - lo
+    assert (np.abs(rest) <= 2.0**-22 * np.abs(x)).all()
+    tie = np.array([1 + 2**-11, -(1 + 2**-11), 1 + 3 * 2**-11], np.float32)  # halfway cases
+    np.testing.assert_array_equal(_tf32(tie), [1 + 2**-10, -(1 + 2**-10), 1 + 2 * 2**-10])
+
+
+def test_three_tf32_products_keep_fp32_accuracy():
+    """At H = 1536 the three products, summed exactly, are within 2e-6 of a
+    float64 product (as close as a plain fp32 product); one TF32 pass is
+    not."""
+    h, w, want = _k1_operands()
+    (hh, hl), (wh, wl) = _split(h), _split(w)
+    f64 = lambda a, b: a.astype(np.float64) @ b.astype(np.float64)  # noqa: E731
+    three = f64(hh, wh) + f64(hh, wl) + f64(hl, wh)
+    plain = (h @ w).astype(np.float64)
+    assert np.abs(three - want).max() <= max(np.abs(plain - want).max(), F64_FLOOR)
+    assert np.abs(f64(hh, wh) - want).max() > 100 * F64_FLOOR
+
+
+def test_kernel_summation_keeps_fp32_accuracy():
+    """Summed as the kernel sums them (32-deep k-tile sums added round-to-
+    nearest) the three products stay within 2e-6 of float64, though every
+    mma rounds toward zero; all 576 mma into one accumulator do not."""
+    h, w, want = _k1_operands()
+    assert np.abs(_mma_sums(h, w, k_tile=32) - want).max() <= F64_FLOOR
+    assert np.abs(_mma_sums(h, w, k_tile=h.shape[1]) - want).max() > F64_FLOOR
