@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive dlsg_tpu_torch's beam-5 serving path (the Captioner, the two-pass
 decode, the HTTP server, `cli serve`/`export`), its GAN train step, its
-trainer, its C++ scorer and its data parallelism on one NVIDIA GPU.
+trainer, its C++ scorer, its data parallelism and its model axis on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -110,9 +111,38 @@ line per phase:
    within train_card_vs_cpu's fp32 tolerance of the single process's. Its
    line gives each run's seconds and step ms, the gradient bytes and
    all-reduce ms per GAN step, the gather seconds and peak memory;
+6e. model_axis (parallel/mesh.py; two ranks on the one card over gloo under
+   `torchrun --nproc_per_node=2 chip_smoke.py --model-axis-rank DIR`, every
+   kernel's launches counted in the ranks over (a)-(c); (a)'s reference
+   runs first, as `chip_smoke.py --model-axis-single DIR` in the ranks'
+   environment): (a) RunGAN at MSR-VTT widths, fp32, fused vocab
+   head, 64 videos x 2 captions (2 GAN steps of batch 64, cut to one eval
+   after the last step), lr MOMENT_CHECK_LR, on a (data 1 x model 2) mesh
+   against the same run in one process: the gathered epoch_0 checkpoint's
+   Adam moments within MOMENT_TOL fp32 and its parameters within
+   2 x updates x lr of the single run's, the replicated parameters bitwise
+   equal across the ranks, each rank's head and both moments of V / 2
+   rows, the eval's token agreement >= 99%; it gives each GAN step's ms
+   (ranks and one process), the model axis's all-gathers and all-reduces
+   per step and the sharded decode's merges (ms, the card synced around
+   each), peak memory. (b) the sharded beam-5 decode of 128 clips at bf16
+   and fp32 against the whole head's K1 decode of the same weights (the
+   one-process decode, run in the same rank so that both share its cuBLAS
+   set-up): token agreement >= 99% each, K1 launched once a beam step on
+   each rank on the dtype's route (tensor_cores, tf32x3), and one beam
+   step's split K1 + merge equal to the whole K1 at G = 640 (ids, values
+   within KERNEL_TOL); it also gives the whole decode's own agreement under
+   a 1e-6 input perturbation. (c) Captioner(mesh=) on a (data 2) mesh at
+   the serving config (both kernels) on a 128-clip request: its captions
+   must equal one process's captions of the two 64-clip halves (a
+   Captioner without a mesh in the same rank), and their agreement with
+   the 128-clip decode is printed; then one
+   16-clip .npz request through the leader's CaptionServer, the other rank
+   following, which must answer caption()'s captions and stop the
+   follower;
 7. the `kernels` line (times, bounds, launches on each path: serving,
-   two_pass, server, train, trainer, cli_serve, data_parallel), the
-   nvidia-smi line, and as the last line
+   two_pass, server, train, trainer, cli_serve, data_parallel,
+   model_axis), the nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -168,6 +198,7 @@ from dlsg_tpu_torch.models.generator import CapGnnModel  # noqa: E402
 from dlsg_tpu_torch.ops import linear as linear_mod  # noqa: E402
 from dlsg_tpu_torch.ops import lstm as lstm_mod  # noqa: E402
 from dlsg_tpu_torch.ops.linear import matmul_f32  # noqa: E402
+from dlsg_tpu_torch.parallel import mesh_timing  # noqa: E402
 from dlsg_tpu_torch.serve import Captioner, jsonable_id  # noqa: E402
 from dlsg_tpu_torch.server import CaptionServer  # noqa: E402
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state  # noqa: E402
@@ -1671,6 +1702,309 @@ def phase_data_parallel() -> dict:
     return result
 
 
+# ------------------------------------------------------------- model axis
+
+# (a): RunGAN, msr-vtt widths, fp32, fused head, MA_VIDEOS x 2 captions =
+# 2 GAN steps of MA_BATCH, cut to one eval (after the last step), at
+# MOMENT_CHECK_LR so that the moments compare gradients
+MA_VIDEOS = 64
+MA_BATCH = 64
+MA_SERVER_CLIPS = 16
+MA_TIMEOUT = 900  # seconds, the torchrun of the two ranks
+def ma_trainer(result_dir: str, mesh=None) -> dict:
+    """(a): one RunGAN epoch (module doc, item 6e) in this process, with the
+    head split over `mesh`'s model axis when given, timed by
+    `parallel/mesh_timing.py` (each GAN step, the model axis's gathers and
+    all-reduces, the split decode's merges; the card synced around each)."""
+    out = mesh_timing.timed_run_gan(result_dir, DEVICE, mesh, MA_VIDEOS, MA_BATCH)
+    out["checkpoint"] = os.path.join(out.pop("checkpoint_dir"), "epoch_0", ckpt_mod.TRAIN_FILE)
+    return out
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (a reference or a check, not the main
+    path) leave every count as it was."""
+    saved = [lib.launches for lib in kernels.LIBRARIES], dict(ROUTE_LAUNCHES)
+    try:
+        yield
+    finally:
+        for lib, n in zip(kernels.LIBRARIES, saved[0]):
+            lib.launches = n
+        ROUTE_LAUNCHES.update(saved[1])
+
+
+def ma_decode(compute_dtype: str, mesh) -> dict:
+    """(b): the beam-5 decode of BATCH clips (fused head) with the head
+    split over `mesh`'s model axis, against the same process's decode of
+    the whole head (the one-process K1 decode; uncounted). Returns the
+    token agreement, the whole decode's own agreement under a 1e-6 input
+    perturbation, the beam steps, K1's launches over the split decode (all
+    and on the dtype's route), one beam step's split K1 + merge against the
+    whole K1 at G = BATCH x BEAM (uncounted), and both decodes' ms."""
+    from dlsg_tpu_torch.parallel.mesh import shard_params
+
+    cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype=compute_dtype,
+                                             use_fused_vocab_head="on"))
+    model = CapGnnModel(cfg, VOCAB, generator=torch.Generator().manual_seed(SEED + 60), device=DEVICE)
+    fr, rg = (torch.from_numpy(a).to(DEVICE) for a in features(BATCH, cfg, seed=SEED + 61))
+    decode = make_decode_fn(model, cfg, beam_size=BEAM, device=DEVICE)
+    out = {}
+    with uncounted():  # the references: the whole head in this process
+        whole = decode(fr, rg)
+        nudged = decode(fr + 1e-6, rg)
+        out["whole_decode_ms"] = time_ms(lambda: decode(fr, rg), repeats=3, warmup=1)
+        wv, bv = (t.clone() for t in model.decoder_vocab_head())
+    out["perturbation_floor"] = agreement(whole, nudged)
+    shard_params(model, mesh)
+    g = torch.Generator().manual_seed(SEED + 62)
+    h = torch.tanh(torch.randn(BATCH * BEAM, cfg.decode_hidden_size, generator=g)).to(DEVICE)
+    with uncounted():  # one beam step's function: the split head against the whole
+        wv_s, bv_s = model.decoder_vocab_head()
+        mv, mi = decode_mod.sharded_vocab_head_topk(h, wv_s, bv_s, BEAM, model.decoder_vocab_shard()[0])
+        pv, pi = vocab_head_topk(h, wv, bv, BEAM)
+        out["step_max_abs_err"] = float((mv - pv).abs().max())
+        out["step_ids_differ"] = int((mi != pi).sum())
+    route = vocab_head_plan(1, VOCAB, cfg.cdtype).route
+    steps = []
+    real_step = model.decoder_beam_step_hidden
+    model.decoder_beam_step_hidden = lambda *a: steps.append(1) or real_step(*a)
+    k1, on_route = VOCAB_LIB.launches, ROUTE_LAUNCHES[route]
+    ids = decode(fr, rg)
+    torch.cuda.synchronize()
+    out.update(token_agreement=agreement(ids, whole), beam_steps=len(steps), route=route,
+               k1_launches=VOCAB_LIB.launches - k1, k1_on_route=ROUTE_LAUNCHES[route] - on_route)
+    model.decoder_beam_step_hidden = real_step
+    out["decode_ms"] = time_ms(lambda: decode(fr, rg), repeats=3, warmup=1)
+    return out
+
+
+def serving_config() -> DLSGConfig:
+    return apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
+                                              use_pallas_lstm=True, use_fused_vocab_head="on"))
+
+
+def caption_agreement(a: list, b: list) -> float:
+    """The share of word positions two caption lists agree on (the longer
+    caption of each pair sets its positions)."""
+    same = total = 0
+    for x, y in zip(a, b):
+        x, y = x.split(), y.split()
+        n = max(len(x), len(y), 1)
+        same += sum(p == q for p, q in zip(x, y)) + (len(x) == len(y) == 0)
+        total += n
+    return same / total
+
+
+def model_axis_rank(work: str) -> None:
+    """One of the two ranks of the model_axis phase (module doc, item 6e),
+    both on the one card over gloo: (a) RunGAN on a (data 1 x model 2)
+    mesh, (b) the sharded decodes, (c) Captioner(mesh=) on a (data 2) mesh
+    and, through the leader, one HTTP request. Every kernel's launches are
+    counted over (a)-(c), the references of (b) and (c) (run here, so that
+    both sides share one process's cuBLAS set-up) left out. Writes
+    work/model_axis_rank_<RANK>.json; the checks run in the parent, so no
+    rank leaves a collective early."""
+    import datetime
+
+    from dlsg_tpu_torch.parallel import dist
+    from dlsg_tpu_torch.parallel.mesh import make_mesh
+    from dlsg_tpu_torch.server import follow
+
+    dist.init_distributed(f"{DEVICE}:0", backend="gloo", timeout=datetime.timedelta(seconds=600))
+    try:
+        r = dist.rank()
+        reset_launches()
+        mesh = make_mesh(n_data=1, n_model=2)
+        t = time.perf_counter()
+        a = ma_trainer(os.path.join(work, "tp"), mesh)
+        a["seconds"] = time.perf_counter() - t
+        ids = a.pop("ids")
+        torch.save(ids, os.path.join(work, f"a_ids_{r}.pt"))
+        b = {dtype: ma_decode(dtype, mesh) for dtype in ("bfloat16", "float32")}
+        torch.cuda.empty_cache()
+
+        mesh = make_mesh(n_data=2)
+        cfg = serving_config()
+        vocab, params = serving_model(cfg)
+        fr, rg = features(BATCH, cfg, seed=SEED + 70)
+        half = BATCH // 2
+        with uncounted():  # the references: one process's Captioner, here
+            one = Captioner(cfg, vocab, params, device=DEVICE)
+            halves = one.caption(fr[:half], rg[:half]) + one.caption(fr[half:], rg[half:])
+            whole = one.caption(fr, rg)
+            del one
+        cap = Captioner(cfg, vocab, params, device=DEVICE, mesh=mesh)
+        c = {"captions": cap.caption(fr, rg)}
+        c["equal_halves"] = c["captions"] == halves
+        c["agreement_with_whole"] = caption_agreement(c["captions"], whole)
+        fr16, rg16 = fr[:MA_SERVER_CLIPS], rg[:MA_SERVER_CLIPS]
+        c["captions_16"] = cap.caption(fr16, rg16)
+        if r == 0:
+            server = CaptionServer(cap, "127.0.0.1", 0)
+            server.start_background()
+            try:
+                status, payload, ms = http(f"http://127.0.0.1:{server.server_address[1]}/caption",
+                                           npz_body(frames=fr16, regions=rg16))
+                _, health, _ = http(f"http://127.0.0.1:{server.server_address[1]}/healthz")
+            finally:
+                server.shutdown()
+                server.server_close()  # stops the follower
+            c.update(http_status=status, http_ms=ms, healthz=health,
+                     http_captions=[x["caption"] for x in payload["captions"]] if status == 200 else None)
+        else:
+            c["followed"] = follow(cap)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with open(os.path.join(work, f"model_axis_rank_{r}.json"), "w") as f:
+            json.dump({"rank": r, "a": a, "b": b, "c": c, "launches": launches}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def model_axis_single(work: str) -> None:
+    """(a)'s reference: the same RunGAN epoch in one process without a
+    group, started like the ranks (same environment, so the same cuBLAS
+    set-up); writes work/model_axis_single.json and its eval ids."""
+    t = time.perf_counter()
+    single = ma_trainer(os.path.join(work, "single"))
+    single["seconds"] = time.perf_counter() - t
+    torch.save(single.pop("ids"), os.path.join(work, "a_ids_single.pt"))
+    with open(os.path.join(work, "model_axis_single.json"), "w") as f:
+        json.dump(single, f)
+
+
+def _moment_diffs(got: dict, want: dict) -> tuple:
+    """([worst share of max-abs, its moment], tensors over MOMENT_TOL fp32,
+    worst absolute parameter difference) of two loaded train checkpoints."""
+    worst, off, param = [0.0, None], [], 0.0
+    for prefix in ("gen", "disc"):
+        for i, st in want[f"{prefix}_opt"]["state"].items():
+            for key in ("exp_avg", "exp_avg_sq"):
+                w, g = st[key].double(), got[f"{prefix}_opt"]["state"][i][key].double()
+                if w.shape != g.shape:
+                    off.append(f"{prefix}.{i}.{key}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+                    continue
+                scale = float(w.abs().max())
+                share = float((g - w).abs().max()) / scale if scale else float(g.abs().max())
+                if share > worst[0]:
+                    worst = [share, f"{prefix}.{i}.{key}"]
+                if share > MOMENT_TOL["float32"]:
+                    off.append(f"{prefix}.{i}.{key}: {share}")
+        for k, w in want[f"{prefix}_params"].items():
+            g = got[f"{prefix}_params"][k]
+            if g.shape != w.shape:
+                off.append(f"{prefix}.{k}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+                continue
+            param = max(param, float((g.double() - w.double()).abs().max()))
+    return worst, off, param
+
+
+def phase_model_axis() -> dict:
+    """The model axis on the one card (module doc, item 6e): (a)'s
+    one-process reference, then the two ranks under torchrun, each a
+    process of its own with one environment; then the checks."""
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_ma_")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")  # the same cuBLAS set-up for all
+
+    # ---- one process: (a)'s reference ----
+    rc, out, err = run_command([sys.executable, str(Path(__file__).resolve()), "--model-axis-single",
+                                work.name], MA_TIMEOUT, env)
+    if rc != 0:
+        raise AssertionError(f"model_axis single: rc {rc}\n{out[-3000:]}\n{err[-3000:]}")
+    with open(os.path.join(work.name, "model_axis_single.json")) as f:
+        single = json.load(f)
+    single_ids = torch.load(os.path.join(work.name, "a_ids_single.pt"))
+
+    # ---- the two ranks ----
+    t = time.perf_counter()
+    rc, out, err = run_command(_torchrun(2) + ["--model-axis-rank", work.name], MA_TIMEOUT, env)
+    ranks_s = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"model_axis: rc {rc}\n{out[-3000:]}\n{err[-3000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work.name, f"model_axis_rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # ---- (a) checks ----
+    a0, a1 = ranks[0]["a"], ranks[1]["a"]
+    tp_ckpt = torch.load(a0["checkpoint"], map_location="cpu", weights_only=True)
+    one_ckpt = torch.load(single["checkpoint"], map_location="cpu", weights_only=True)
+    worst, off, param_diff = _moment_diffs(tp_ckpt, one_ckpt)
+    updates = max(one_ckpt["disc_step"], 1)
+    half_v = VOCAB // 2
+    a_agree = [agreement(torch.load(os.path.join(work.name, f"a_ids_{r}.pt")), single_ids) for r in range(2)]
+    problems = []
+    if off or param_diff > 2 * updates * MOMENT_CHECK_LR:
+        problems.append(f"(a) checkpoint against one process: {off[:6]}, parameters {param_diff}")
+    if a0["replicated_digest"] != a1["replicated_digest"]:
+        problems.append("(a) the replicated parameters differ between the ranks")
+    if [a0["head_rows"], a1["head_rows"]] != [[half_v] * 3] * 2 or \
+            [a0["out_shard"], a1["out_shard"]] != [[0, VOCAB], [half_v, VOCAB]]:
+        problems.append(f"(a) head layout {a0['head_rows']} {a1['head_rows']} {a0['out_shard']} {a1['out_shard']}")
+    if a0["steps_g_d"] != single["steps_g_d"] or min(a_agree) < TOKEN_AGREEMENT_MIN or not a0["merges"]:
+        problems.append(f"(a) steps {a0['steps_g_d']} vs {single['steps_g_d']}, eval agreement "
+                        f"{a_agree}, merges {a0['merges']}")
+    # ---- (b) ----
+    for dtype in ("bfloat16", "float32"):
+        for rk in ranks:
+            got = rk["b"][dtype]
+            if not (got["k1_launches"] == got["k1_on_route"] == got["beam_steps"] >= 1
+                    and got["route"] == ("tensor_cores" if dtype == "bfloat16" else "tf32x3")
+                    and got["step_max_abs_err"] <= KERNEL_TOL and got["step_ids_differ"] == 0
+                    and got["token_agreement"] >= TOKEN_AGREEMENT_MIN):
+                problems.append(f"(b) {dtype} rank {rk['rank']}: {got}")
+    # ---- (c) ----
+    c0, c1 = ranks[0]["c"], ranks[1]["c"]
+    if not (c0["equal_halves"] and c1["equal_halves"] and c0["captions"] == c1["captions"]):
+        problems.append("(c) the data-split captions differ from one process's 64-clip halves")
+    if c0["http_status"] != 200 or c0["http_captions"] != c0["captions_16"] or c1.get("followed") != 1 \
+            or c0["healthz"].get("world") != 2 or c0["healthz"].get("mesh") != {"data": 2, "model": 1}:
+        problems.append(f"(c) server: status {c0['http_status']}, followed {c1.get('followed')}, "
+                        f"healthz {c0['healthz']}")
+    launches = ranks[0]["launches"]
+    if ranks[1]["launches"] != launches or not launches["lstm_scan"] or \
+            not launches["vocab_head[tensor_cores]"] or not launches["vocab_head[tf32x3]"]:
+        problems.append(f"(a)-(c) launches {launches} / {ranks[1]['launches']}")
+    if problems:
+        raise AssertionError("model_axis: " + "; ".join(problems))
+    work.cleanup()
+
+    result = {
+        "phase": "model_axis",
+        "a": {"config": f"RunGAN msr-vtt, fp32, fused head, {VOCAB} words, {MA_VIDEOS} videos x 2 "
+                        f"captions = 2 GAN steps of {MA_BATCH}, 1 eval; (data 1 x model 2) on one card "
+                        f"over gloo against one process; lr {MOMENT_CHECK_LR}",
+              "checkpoint_moments_worst_share_of_max_abs": worst, "tolerance": MOMENT_TOL["float32"],
+              "checkpoint_params_max_abs_diff": param_diff, "eval_token_agreement": a_agree,
+              "step_ms": {"single": single["step_ms"], "ranks": [a0["step_ms"], a1["step_ms"]]},
+              "seconds": {"single": single["seconds"], "ranks": [a0["seconds"], a1["seconds"]]},
+              "gather_ms_per_step": [a0["gather_ms_per_step"], a1["gather_ms_per_step"]],
+              "all_reduce_ms_per_step": [a0["model_all_reduce_ms_per_step"],
+                                         a1["model_all_reduce_ms_per_step"]],
+              "calls_per_step": a0["calls_per_step"],
+              "merge_ms_per_beam_step": [a0["merge_ms_per_beam_step"], a1["merge_ms_per_beam_step"]],
+              "peak_mem_gb": {"single": single["peak_mem_gb"],
+                              "ranks": [a0["peak_mem_gb"], a1["peak_mem_gb"]]},
+              "head_rows_per_rank": a0["head_rows"], "replicated_params_equal_across_ranks": True},
+        "b": {dtype: {k: [rk["b"][dtype][k] for rk in ranks]
+                      for k in ("token_agreement", "perturbation_floor", "beam_steps", "k1_launches",
+                                "route", "step_max_abs_err", "step_ids_differ", "decode_ms",
+                                "whole_decode_ms")}
+              for dtype in ("bfloat16", "float32")},
+        "c": {"config": "serving (msr-vtt, bf16, both kernels), (data 2) on one card over gloo",
+              "captions_equal_halves": True,
+              "agreement_with_128_clip_decode": [c0["agreement_with_whole"], c1["agreement_with_whole"]],
+              "http_ms_16_clips": c0["http_ms"], "healthz": c0["healthz"]},
+        "collectives": "gloo, two ranks on one card: not NCCL's times",
+        "torchrun_s": ranks_s, "launches": launches, "seconds": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    return result
+
+
 def main() -> None:
     info = phase_device()
     scorer_build_s = phase_build()
@@ -1705,6 +2039,8 @@ def main() -> None:
     launches["launches_data_parallel"] = phase_data_parallel()["launches"]
     phase_scorer(references, captions, scorer_build_s)
     launches["launches_cli_serve"] = phase_cli_serve()["launches"]
+    torch.cuda.empty_cache()
+    launches["launches_model_axis"] = phase_model_axis()["launches"]
     for key, entry in checks:
         for path, counts in launches.items():
             entry[path] = counts[key]
@@ -1714,10 +2050,16 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    # the data_parallel phase runs these two under torchrun or alone
+    # the data_parallel and model_axis phases run these under torchrun or alone
     if sys.argv[1:2] == ["--cli-rank"]:
         sys.exit(cli_rank(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--gan-rank"]:
         gan_rank(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        model_axis_rank(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--model-axis-single"]:
+        model_axis_single(sys.argv[2])
         sys.exit(0)
     main()

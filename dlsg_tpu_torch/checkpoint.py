@@ -11,7 +11,11 @@ layout under `ckpt_dir`:
    GAN-lambda state; `restore_train` loads them into fresh train states.
 
 The files are `torch.save` of state_dicts, ints and tensors, read back with
-`torch.load(weights_only=True)`. The JAX package writes orbax checkpoints,
+`torch.load(weights_only=True)`. They hold whole tensors whatever the
+layout: under a mesh with a model axis `save_train` gathers the split vocab
+head and its Adam moments over the model group (every rank calls it; the
+leader writes), and a trainer re-splits what `restore_train` loads, so a
+checkpoint restores in one process or under any model axis. The JAX package writes orbax checkpoints,
 and orbax imports jax, so neither package reads the other's checkpoints: a
 serving bundle (`bundle.py`) carries trained weights across.
 """
@@ -24,6 +28,8 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 
 from dlsg_tpu_torch.device import DeviceLike
+from dlsg_tpu_torch.parallel.dist import is_leader
+from dlsg_tpu_torch.parallel.mesh import whole_optimizer_state, whole_state_dict
 from dlsg_tpu_torch.train.gan_lambda import LambdaState
 from dlsg_tpu_torch.train.optim import TrainState
 
@@ -62,20 +68,25 @@ def save_train(
     """Full training checkpoint of `epoch` (run_gun.py:302-310). The step
     counters seed each step's draws (train/steps.py), so a resume from here
     reproduces the uninterrupted run's draws; `lambda_state` is the
-    on-device GAN-lambda machine (the reference saves its cap_list)."""
+    on-device GAN-lambda machine (the reference saves its cap_list).
+
+    Inside a process group every rank calls it: split tensors are gathered
+    whole (a collective over the model group) and only the leader writes.
+    Returns the file's path."""
+    path = os.path.join(os.path.abspath(ckpt_dir), f"epoch_{epoch}", TRAIN_FILE)
     payload: Dict[str, Any] = {
         "epoch": int(epoch),
-        "gen_params": gen_state.module.state_dict(),
-        "gen_opt": gen_state.optimizer.state_dict(),
+        "gen_params": whole_state_dict(gen_state.module),
+        "gen_opt": whole_optimizer_state(gen_state),
         "gen_step": int(gen_state.step),
     }
     if disc_state is not None:
-        payload["disc_params"] = disc_state.module.state_dict()
-        payload["disc_opt"] = disc_state.optimizer.state_dict()
+        payload["disc_params"] = whole_state_dict(disc_state.module)
+        payload["disc_opt"] = whole_optimizer_state(disc_state)
         payload["disc_step"] = int(disc_state.step)
     if lambda_state is not None:
         payload["gan_lambda_state"] = dict(lambda_state)
-    return _save(os.path.join(os.path.abspath(ckpt_dir), f"epoch_{epoch}", TRAIN_FILE), payload)
+    return _save(path, payload) if is_leader() else path
 
 
 def _restore_state(state: TrainState, payload: Dict[str, Any], prefix: str) -> TrainState:
@@ -94,8 +105,9 @@ def restore_train(
     disc_state: Optional[TrainState] = None,
     lambda_state: Optional[LambdaState] = None,
 ) -> Dict[str, Any]:
-    """Load an `epoch_N` checkpoint into fresh train states (in place, on
-    their modules' device). Returns {'epoch', 'gen_state', 'disc_state',
+    """Load an `epoch_N` checkpoint into fresh, whole train states (in
+    place, on their modules' device; a trainer splits them after).
+    Returns {'epoch', 'gen_state', 'disc_state',
     'gan_lambda_state'}; the lambda state is None unless the checkpoint has
     one and `lambda_state` (its template: device and dtypes) is given."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"epoch_{epoch}", TRAIN_FILE)

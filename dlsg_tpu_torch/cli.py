@@ -38,17 +38,25 @@ package's names and defaults, and these:
                          (metrics/meteor.py; set through the
                          DLSG_METEOR_*_FILE environment variables)
   --device DEV           where to run (cuda); --device cpu runs on the CPU
-  --distributed          train/evaluate: one process per card, as torchrun
-                         starts them (parallel/dist.py; NCCL on cards, gloo
-                         with --device cpu):
+  --distributed          one process per card, as torchrun starts them
+                         (parallel/dist.py; NCCL on cards, gloo with
+                         --device cpu), laid out as the mesh of
+                         --mesh_data_axis x --mesh_model_axis
+                         (parallel/mesh.py; data -1 takes the rest):
                            torchrun --nproc_per_node=N -m dlsg_tpu_torch.cli train --distributed ...
-                         Each rank trains on its shard with train_batch_size
-                         rows a step, and evaluates its shard before the
-                         gather; only rank 0 prints, logs and saves
+                         train: each data index trains on its shard with
+                         train_batch_size rows a step and evaluates its
+                         shard before the gather; a model axis > 1 splits
+                         the vocab head over the model peers. evaluate: the
+                         same decode. serve: whole parameters on every
+                         rank, each request's rows split over the data
+                         axis (--listen: rank 0 listens, the others follow).
+                         export: rank 0 writes the bundle, gathered whole.
+                         Only rank 0 prints, logs and saves.
+                         --mesh_model_axis > 1 needs --distributed (exit 2)
 
 Not ported yet (exit 2): `train-base`, `train-legacy` (ROADMAP queue 1,
-item 7); `serve`/`export --distributed` (multi-card serving comes with the
-model axis, item 6b).
+item 7).
 """
 
 from __future__ import annotations
@@ -196,7 +204,8 @@ def _parser() -> argparse.ArgumentParser:
     extra.add_argument("--device", type=str, default="cuda")
     extra.add_argument(
         "--distributed", action="store_true",
-        help="train/evaluate: join the torchrun process group (one process per card)",
+        help="join the torchrun process group (one process per card), laid out as the "
+        "mesh of --mesh_data_axis x --mesh_model_axis",
     )
     return extra
 
@@ -244,28 +253,35 @@ def main(argv=None) -> int:
     if extra_ns.torch_checkpoint and not os.path.isfile(extra_ns.torch_checkpoint):
         print(f"--torch_checkpoint: no such file: {extra_ns.torch_checkpoint}", file=sys.stderr)
         return 2
-    if extra_ns.distributed and command in ("serve", "export"):
+    if cfg.mesh_model_axis > 1 and not extra_ns.distributed:
         print(
-            f"{command} --distributed: multi-card serving is not ported yet; it comes "
-            "with the model axis (ROADMAP queue 1, item 6b)",
+            f"{command}: --mesh_model_axis {cfg.mesh_model_axis} splits the vocab head over "
+            "ranks: launch one process per rank with torchrun and pass --distributed",
             file=sys.stderr,
         )
         return 2
     if not extra_ns.distributed:
-        return _run(command, cfg, extra_ns, _device(extra_ns.device))
+        return _run(command, cfg, extra_ns, _device(extra_ns.device), None)
 
     import torch.distributed
 
     from dlsg_tpu_torch.parallel import dist
+    from dlsg_tpu_torch.parallel.mesh import make_mesh
 
     device = dist.init_distributed(_device(extra_ns.device))  # before any model is built
     try:
-        return _run(command, cfg, extra_ns, device)
+        try:
+            mesh = make_mesh(cfg.mesh_data_axis, cfg.mesh_model_axis)
+        except ValueError as e:
+            print(f"{command}: {e}", file=sys.stderr)
+            return 2
+        return _run(command, cfg, extra_ns, device, mesh)
     finally:
+        dist.set_mesh(None)
         torch.distributed.destroy_process_group()
 
 
-def _run(command, cfg, extra_ns, device) -> int:
+def _run(command, cfg, extra_ns, device, mesh) -> int:
     if command == "train":
         from dlsg_tpu_torch.train.trainer import RunGAN
 
@@ -276,32 +292,36 @@ def _run(command, cfg, extra_ns, device) -> int:
         runner = RunGAN(
             cfg, vocab, train_ds, eval_ds, reference,
             is_debug=not extra_ns.no_debug, resume_epoch=extra_ns.resume_epoch, device=device,
+            mesh=mesh,
         )
-        runner.train()  # this rank's shard of each epoch
+        runner.train()  # this data index's shard of each epoch
         return 0
     if command == "evaluate":
-        return _evaluate(cfg, extra_ns, device)
+        return _evaluate(cfg, extra_ns, device, mesh)
     if command == "export":
-        return _export(cfg, extra_ns, device)
-    return _serve(cfg, extra_ns, device)
+        return _export(cfg, extra_ns, device, mesh)
+    return _serve(cfg, extra_ns, device, mesh)
 
 
-def _evaluate(cfg, extra_ns, device) -> int:
+def _evaluate(cfg, extra_ns, device, mesh) -> int:
     from dlsg_tpu_torch.data.loader import eval_batches
     from dlsg_tpu_torch.evaluation.decode import make_decode_fn
     from dlsg_tpu_torch.evaluation.evaluate import evaluate
     from dlsg_tpu_torch.parallel import dist
+    from dlsg_tpu_torch.parallel.mesh import shard_params
 
     vocab, _, eval_ds, reference = _build_datasets(
         cfg, extra_ns.synthetic, extra_ns.synthetic_videos, synthetic_vocab=extra_ns.synthetic_vocab
     )
     model = _load_generator(cfg, vocab, extra_ns, device)
+    if mesh is not None:
+        shard_params(model, mesh)  # the trainer's layout: the head split over the model axis
     decode_fn = make_decode_fn(model, cfg, device=device)
-    # each rank decodes its shard; the gather merges them on every rank
+    # each data index decodes its shard; the gather merges them on every rank
     scores, _, _, t = evaluate(
         decode_fn,
-        eval_batches(eval_ds, cfg.test_batch_size, shard_index=dist.rank(),
-                     num_shards=dist.world_size()),
+        eval_batches(eval_ds, cfg.test_batch_size, shard_index=dist.data_rank(),
+                     num_shards=dist.data_size()),
         vocab, reference, stage_dtype=cfg.stage_dtype,
     )
     if dist.is_leader():
@@ -311,30 +331,40 @@ def _evaluate(cfg, extra_ns, device) -> int:
     return 0
 
 
-def _export(cfg, extra_ns, device) -> int:
+def _export(cfg, extra_ns, device, mesh) -> int:
     from dlsg_tpu_torch.bundle import save_bundle
+    from dlsg_tpu_torch.parallel import dist
+    from dlsg_tpu_torch.parallel.mesh import shard_params, whole_state_dict
     from dlsg_tpu_torch.weights import params_to_jax
 
     vocab = _vocab_only(cfg, extra_ns.synthetic, extra_ns.synthetic_vocab)
     model = _load_generator(cfg, vocab, extra_ns, device)
+    if mesh is not None:
+        shard_params(model, mesh)  # the trainer's layout, gathered whole again below
+    params = whole_state_dict(model)  # every rank joins the gather
     out = extra_ns.output or "model.dlsg.npz"
-    save_bundle(out, cfg, vocab, params_to_jax(model.state_dict()))
-    print(
-        f"export: wrote {out} ({os.path.getsize(out) / 1e6:.1f} MB — "
-        f"{len(vocab)}-word vocab, {cfg.dataset} config)",
-        file=sys.stderr,
-    )
+    if dist.is_leader():
+        save_bundle(out, cfg, vocab, params_to_jax(params))
+        print(
+            f"export: wrote {out} ({os.path.getsize(out) / 1e6:.1f} MB — "
+            f"{len(vocab)}-word vocab, {cfg.dataset} config)",
+            file=sys.stderr,
+        )
+    dist.barrier()  # no rank returns before the bundle is written
     return 0
 
 
-def _serve(cfg, extra_ns, device) -> int:
+def _serve(cfg, extra_ns, device, mesh) -> int:
     import numpy as np
 
+    from dlsg_tpu_torch.parallel import dist
     from dlsg_tpu_torch.serve import Captioner, jsonable_id
 
+    leader = dist.is_leader()
     eval_ds = None
     if extra_ns.bundle:
-        captioner = Captioner.from_bundle(extra_ns.bundle, fast=extra_ns.fast, device=device)
+        captioner = Captioner.from_bundle(extra_ns.bundle, fast=extra_ns.fast, device=device,
+                                          mesh=mesh)
         cfg = captioner.cfg  # the bundle's config drives serving
     else:
         if extra_ns.features or extra_ns.listen:
@@ -346,17 +376,21 @@ def _serve(cfg, extra_ns, device) -> int:
             )
         model = _load_generator(cfg, vocab, extra_ns, device)
         captioner = Captioner.from_params(cfg, vocab, model.state_dict(), fast=extra_ns.fast,
-                                          device=device)
+                                          device=device, mesh=mesh)
         del model
 
     if extra_ns.listen:
-        from dlsg_tpu_torch.server import CaptionServer
+        from dlsg_tpu_torch.server import CaptionServer, follow
 
-        if extra_ns.warmup:
+        if extra_ns.warmup:  # every rank: the buckets run split as requests do
             t0 = time.perf_counter()
             n_shapes = captioner.warmup(greedy=extra_ns.greedy)
-            print(f"serve: warmed {n_shapes} bucket shapes in {time.perf_counter() - t0:.1f}s",
-                  file=sys.stderr)
+            if leader:
+                print(f"serve: warmed {n_shapes} bucket shapes in "
+                      f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
+        if not leader:
+            follow(captioner)  # until the leader's server closes
+            return 0
         host, _, port = extra_ns.listen.rpartition(":")
         server = CaptionServer(captioner, host or "0.0.0.0", int(port))
         print(
@@ -375,8 +409,8 @@ def _serve(cfg, extra_ns, device) -> int:
     n_done = 0
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
-        out = sys.stdout
-        if extra_ns.output:
+        out = sys.stdout if leader else stack.enter_context(open(os.devnull, "w"))
+        if extra_ns.output and leader:
             out = stack.enter_context(open(extra_ns.output, "w"))
 
         def emit(frames, regions, video_ids):
@@ -404,7 +438,9 @@ def _serve(cfg, extra_ns, device) -> int:
             for batch in eval_batches(eval_ds, cfg.test_batch_size, pad_to_full=False):
                 emit(batch["frames"], batch["regions"], batch["video_ids"])
     dt = time.perf_counter() - t0
-    print(f"serve: {n_done} captions in {dt:.2f}s ({n_done / max(dt, 1e-9):.1f}/s)", file=sys.stderr)
+    if leader:
+        print(f"serve: {n_done} captions in {dt:.2f}s ({n_done / max(dt, 1e-9):.1f}/s)",
+              file=sys.stderr)
     return 0
 
 

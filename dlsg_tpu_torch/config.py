@@ -4,8 +4,10 @@ Field names and defaults are identical to the JAX package's, so the config
 JSON inside a serving bundle loads into either package, and so are the
 derived data paths, `checkpoint_dir`, `base_name()` and the CLI flags of
 `parse_opt`. The two dtype properties return torch dtypes instead of jnp
-ones. Fields that select JAX-only machinery (meshes, remat, the training RNG)
-are kept so a bundle round-trips, and are ignored by this package.
+ones. Fields that select JAX-only machinery (remat, the training RNG) are
+kept so a bundle round-trips, and are ignored by this package.
+`mesh_data_axis`/`mesh_model_axis` lay the ranks of a process group out as
+a (data, model) mesh (parallel/mesh.py), as they lay out devices in JAX.
 """
 
 from __future__ import annotations
@@ -124,6 +126,9 @@ class DLSGConfig:
     decoder_remat: str = "none"
     decode_two_pass_t1: int = 0
     decode_two_pass_bucket: int = 0
+    # the (data, model) mesh over the ranks of a process group
+    # (parallel/mesh.py): -1 data takes the rest; model > 1 splits the vocab
+    # head over that many ranks and needs a process group
     mesh_data_axis: int = -1
     mesh_model_axis: int = 1
     log_every: int = 10

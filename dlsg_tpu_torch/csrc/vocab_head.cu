@@ -20,7 +20,9 @@
 //      that epilogue 2 threads share a row: each keeps the 8 best of its
 //      columns in registers by insertion, and the lists merge over shuffles;
 //   2. merge_kernel, one warp per row: picks the k best of the per-tile lists
-//      and combines the lse as M + log(sum_j s_j exp(m_j - M)).
+//      and combines the lse as M + log(sum_j s_j exp(m_j - M)), which it also
+//      writes out when asked (a vocab head split over ranks merges the ranks'
+//      top-k and lse after this launch, evaluation/decode.py).
 // The tile kernel has two forms, chosen by the dtype of w alone. Both are a
 // 128 x 128 tile on the tensor cores, the row tile the fast grid index: 8
 // warps, each a 64 x 32 sub-tile, fed by a ring of [128 x 32] h tiles and
@@ -573,8 +575,8 @@ tf32x3_tile_kernel(const float* __restrict__ h, const float* __restrict__ w,
 __global__ void __launch_bounds__(256)
 merge_kernel(const float* __restrict__ part_v, const long long* __restrict__ part_i,
              const float* __restrict__ part_m, const float* __restrict__ part_s,
-             float* __restrict__ vals, long long* __restrict__ ids, int G, int k,
-             int n_tiles, int normalize) {
+             float* __restrict__ vals, long long* __restrict__ ids,
+             float* __restrict__ lse_out, int G, int k, int n_tiles, int normalize) {
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (r >= G) return;  // whole warp
@@ -587,6 +589,7 @@ merge_kernel(const float* __restrict__ part_v, const long long* __restrict__ par
   for (int t = lane; t < n_tiles; t += 32) S += ps[t] * expf(pm[t] - M);
   S = warp_sum(S);
   const float lse = M + logf(S);
+  if (lse_out != nullptr && lane == 0) lse_out[r] = lse;
 
   const float* cv = part_v + (size_t)r * n_tiles * k;
   const long long* ci = part_i + (size_t)r * n_tiles * k;
@@ -627,13 +630,15 @@ extern "C" int vocab_head_tf32x3_smem_bytes() { return F_SMEM_BYTES; }
 
 // w [H, V] bf16 (w_bf16 = 1) with h [G, H] bf16, or w and h fp32; b [V]
 // fp32; scratch part_v/part_i [G, n_tiles, k], part_m/part_s [G, n_tiles]
-// with n_tiles = ceil(V / 128); outputs vals [G, k] fp32, ids [G, k] int64.
+// with n_tiles = ceil(V / 128); outputs vals [G, k] fp32, ids [G, k] int64,
+// and, when lse is not null, the row logsumexp lse [G] fp32 (last, so a
+// caller of the form without it binds unchanged).
 // Returns the first nonzero cudaGetLastError() of the launches.
 extern "C" int vocab_head_topk_launch(const void* h, const void* w, int w_bf16,
                                       const void* b, void* part_v, void* part_i,
                                       void* part_m, void* part_s, void* vals, void* ids,
                                       int G, int H, int V, int k, int normalize,
-                                      void* stream) {
+                                      void* stream, void* lse) {
   if (k < 1 || k > KMAX || G < 1 || V < 1 || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -670,7 +675,7 @@ extern "C" int vocab_head_topk_launch(const void* h, const void* w, int w_bf16,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_kernel<<<(G + 7) / 8, 256, 0, st>>>(pv, pi, pm, ps, static_cast<float*>(vals),
-                                            static_cast<long long*>(ids), G, k, n_tiles,
-                                            normalize);
+                                            static_cast<long long*>(ids),
+                                            static_cast<float*>(lse), G, k, n_tiles, normalize);
   return static_cast<int>(cudaGetLastError());
 }

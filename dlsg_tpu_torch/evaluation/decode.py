@@ -5,13 +5,24 @@ CapGnnModel, with the fused vocab-head kernel behind
 
 Scoring is `evaluation/evaluate.py::evaluate`. With `0 <
 decode_two_pass_t1 < max_words` the beam decode runs in two passes
-(`_make_two_pass_fn`). Mesh-sharded decode is not ported yet (ROADMAP queue
-1, item 6).
+(`_make_two_pass_fn`).
+
+With the vocab head split over a mesh's model axis (`parallel/mesh.py`),
+every model peer decodes the same rows. The plain head gathers whole
+logits (models/decoder.py). The fused head runs the kernel on this rank's
+columns (`normalize=False, return_lse=True`), offsets its ids, all-gathers
+the [G, k] values and ids and the [G] logsumexp over the model group and
+merges them (`merge_shard_topk`): the same top-k and normalization as the
+whole head. The JAX package drops its kernel under a mesh instead (a
+Mosaic call cannot be partitioned); the function is the same. The merged
+values are equal on every peer, so the beam's per-step early exit and the
+two-pass decode's unfinished count, read from them, keep the peers in step
+through every collective.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -20,6 +31,8 @@ from dlsg_tpu_torch.device import DeviceLike, resolve_device
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk
 from dlsg_tpu_torch.models.decoder import expand_pre_to_beams
 from dlsg_tpu_torch.ops.beam_search import beam_search
+from dlsg_tpu_torch.ops.topk import top_k
+from dlsg_tpu_torch.parallel import dist
 from dlsg_tpu_torch.vocab import END_ID, START_ID
 
 
@@ -27,6 +40,35 @@ def _use_fused_head(cfg: DLSGConfig) -> bool:
     """'on' routes each beam step's vocab projection + top-k + logsumexp to
     the vocab_head kernel; 'auto' resolves to off, as in the JAX package."""
     return cfg.use_fused_vocab_head == "on"
+
+
+def merge_shard_topk(
+    vals: torch.Tensor, ids: torch.Tensor, lse: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole head's normalized top-k from the shards': vals and ids
+    [G, n, k] (each shard's raw top-k, descending, ids already offset to
+    whole-vocabulary columns), lse [G, n]. The k best of the n*k candidates
+    by value descending, then id ascending (`lax.top_k`'s tie rule across a
+    shard boundary: shards are in column order and each lists its ties by
+    id, so position order among equal values is id order), minus the
+    logsumexp of the shards' logsumexps."""
+    G, n, kk = vals.shape
+    best, pos = top_k(vals.reshape(G, n * kk), k)
+    row_lse = torch.logsumexp(lse, dim=-1, keepdim=True)
+    return best - row_lse, torch.gather(ids.reshape(G, n * kk), 1, pos)
+
+
+def sharded_vocab_head_topk(
+    h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int, first_col: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`vocab_head_topk(h, w_whole, b_whole, k, normalize=True)` of a head
+    split over the model axis, from this rank's columns w [H, V/n] (from
+    `first_col`) and b: the kernel on the shard, one all-gather of its
+    top-k and logsumexp over the model group, `merge_shard_topk`."""
+    vals, ids, lse = vocab_head_topk(h, w, b, k, normalize=False, return_lse=True)
+    group = dist.current_mesh().model_group
+    vals_g, ids_g, lse_g = dist.all_gather_tensors([vals, ids + first_col, lse], group)
+    return merge_shard_topk(vals_g.transpose(0, 1), ids_g.transpose(0, 1), lse_g.t(), k)
 
 
 def make_decode_fn(
@@ -139,12 +181,16 @@ def _make_beam_from_feats(model, cfg: DLSGConfig, beam: int) -> Callable:
 
         if fused:
             wv, bv = model.decoder_vocab_head()
+            shard = model.decoder_vocab_shard()
 
             def step_fn(tokens, st):
                 # the first step runs un-expanded on [B]
                 p = pre if tokens.shape[0] == B else pre_x
                 hid, new_st, alpha = model.decoder_beam_step_hidden(tokens, st, p)
-                vals, ids = vocab_head_topk(hid, wv, bv, beam, normalize=True)
+                if shard is None:
+                    vals, ids = vocab_head_topk(hid, wv, bv, beam, normalize=True)
+                else:
+                    vals, ids = sharded_vocab_head_topk(hid, wv, bv, beam, shard[0])
                 return vals, ids, new_st, alpha
 
         else:

@@ -7,12 +7,14 @@ The decode function comes from `evaluation/decode.py::make_decode_fn`; it
 reads the model's parameters as they are when it is called, so the trainer
 passes no parameters.
 
-Data parallelism: each rank decodes its shard (`eval_batches(...,
-shard_index=rank, num_shards=world)`) on its own card, with no collective
-inside the decode, so the fused vocab head and the per-step early exit stay
-on (the JAX package drops both under a mesh, whose decode is one sharded
-program); the gather then merges the shards on every rank
-(parallel/dist.py::gather_eval), and every rank scores the whole set.
+Data parallelism: each data index decodes its shard (`eval_batches(...,
+shard_index=data_rank, num_shards=data_size)`) on its own card, so the
+fused vocab head and the per-step early exit stay on (the JAX package drops
+both under a mesh, whose decode is one sharded program); with a model axis,
+the model peers of a data index decode the same shard with the head split
+between them (evaluation/decode.py). The gather then merges the shards
+over the data axis on every rank (parallel/dist.py::gather_eval), and
+every rank scores the whole set.
 """
 
 from __future__ import annotations

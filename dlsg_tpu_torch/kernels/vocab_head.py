@@ -3,8 +3,10 @@
 Counterpart of `dlsg_tpu/ops/pallas/vocab_head.py::vocab_head_topk`:
 `top_k(h @ w + b)` per row with h cast to w's dtype, fp32 accumulation and an
 fp32 bias; values sorted descending, ties to the lowest id (as `lax.top_k`);
-with `normalize` the exact row logsumexp is subtracted. On the card the
-[G, V] logits never reach device memory.
+with `normalize` the exact row logsumexp is subtracted, and with `return_lse`
+it is returned as well (a head split over ranks merges the ranks' top-k and
+logsumexp, evaluation/decode.py). On the card the [G, V] logits never reach
+device memory.
 
 The dtype of w alone picks the kernel's tile form, both on the tensor cores:
 bf16 w runs one bf16 product (h rounded to bf16 once, here), fp32 w three TF32
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -32,7 +34,7 @@ LIBRARY = CudaLibrary(
     "vocab_head",
     {
         "vocab_head_topk_launch": (
-            [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
             ctypes.c_int,
         ),
         "vocab_head_tc_smem_bytes": ([], ctypes.c_int),
@@ -78,30 +80,40 @@ def vocab_head_plan(G: int, V: int, w_dtype: torch.dtype) -> TilePlan:
                     max(ring, bm * (TILE_V + THREADS // bm) * 4))
 
 
+TopK = Union[Tuple[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
 def vocab_head_topk_plain(
-    h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int, *, normalize: bool = True
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int, *, normalize: bool = True,
+    return_lse: bool = False,
+) -> TopK:
     """Plain PyTorch version: fp32 logits from the w.dtype-rounded operands,
     a stable descending sort, then `torch.logsumexp`."""
     logits = h.to(w.dtype).float() @ w.float() + b.float()[None, :]
     vals, ids = top_k(logits, k)
+    if not (normalize or return_lse):
+        return vals, ids
+    lse = torch.logsumexp(logits, dim=-1)
     if normalize:
-        vals = vals - torch.logsumexp(logits, dim=-1, keepdim=True)
-    return vals, ids
+        vals = vals - lse[:, None]
+    return (vals, ids, lse) if return_lse else (vals, ids)
 
 
 def vocab_head_topk(
-    h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int, *, normalize: bool = True
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int, *, normalize: bool = True,
+    return_lse: bool = False,
+) -> TopK:
     """Fused ``top_k(h @ w + b)`` (+ log-softmax normalization of the winners).
 
     h [G, H] any float dtype (cast to w.dtype for the product), w [H, V] bf16
-    or fp32, b [V]; returns (vals [G, k] fp32 descending, ids [G, k] int64).
+    or fp32, b [V]; returns (vals [G, k] fp32 descending, ids [G, k] int64),
+    and with `return_lse` also the row logsumexp lse [G] fp32.
     A CPU tensor takes `vocab_head_topk_plain`; a CUDA tensor launches the
     kernel (one tile launch and one merge launch, counted as one): with bf16 w
-    the bf16 tensor-core tiles, with fp32 w the TF32x3 tiles."""
+    the bf16 tensor-core tiles, with fp32 w the TF32x3 tiles. The merge
+    launch writes the lse when it is asked for."""
     if h.device.type == "cpu":
-        return vocab_head_topk_plain(h, w, b, k, normalize=normalize)
+        return vocab_head_topk_plain(h, w, b, k, normalize=normalize, return_lse=return_lse)
     if h.device.type != "cuda":
         raise ValueError(f"vocab_head_topk runs on cuda or cpu tensors, got {h.device}")
     if h.dim() != 2 or w.dim() != 2 or b.dim() != 1:
@@ -129,8 +141,10 @@ def vocab_head_topk(
     part_s = torch.empty(G, n_tiles, device=dev, dtype=torch.float32)
     vals = torch.empty(G, k, device=dev, dtype=torch.float32)
     ids = torch.empty(G, k, device=dev, dtype=torch.int64)
+    lse = torch.empty(G, device=dev, dtype=torch.float32) if return_lse else None
+    out = (vals, ids, lse) if return_lse else (vals, ids)
     if G == 0:
-        return vals, ids
+        return out
     lib = LIBRARY.load()
     with torch.cuda.device(dev):
         err = lib.vocab_head_topk_launch(
@@ -138,8 +152,9 @@ def vocab_head_topk(
             part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
             vals.data_ptr(), ids.data_ptr(), G, H, V, k, int(normalize),
             torch.cuda.current_stream(dev).cuda_stream,
+            None if lse is None else lse.data_ptr(),
         )
         LIBRARY.launches += 1
         ROUTE_LAUNCHES[plan.route] += 1
     LIBRARY.check(err)
-    return vals, ids
+    return out

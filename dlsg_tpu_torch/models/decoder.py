@@ -18,6 +18,13 @@ output and lang_h (before it becomes the recurrent state, so the dropped
 lang_h feeds the logits and the next step); 0.1 (`context_att.drop`) as one
 mask over both branches' concatenated context. Greedy decoding and the beam
 step are always deterministic.
+
+With the vocab projection split over a mesh's model axis
+(`parallel/mesh.py`), each rank projects onto its columns and the logits are
+all-gathered, so every caller (the scan, its scheduled-sampling argmax, the
+losses, greedy and beam decode) sees whole [.., V] logits, as under XLA's
+all-gather in the JAX package; the fused head's sharded form is in
+`evaluation/decode.py`.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from dlsg_tpu_torch.config import DLSGConfig
 from dlsg_tpu_torch.models.layers import AttentionShare
 from dlsg_tpu_torch.ops.linear import LN_EPS, Dense, Dropout, Embed, LayerNorm, matmul_f32
 from dlsg_tpu_torch.ops.lstm import LSTMCell, SplitInputLSTMCell, lstm_gates
+from dlsg_tpu_torch.parallel.dist import copy_to_model, gather_from_model
 from dlsg_tpu_torch.vocab import START_ID
 
 # `pre` keys with a leading batch axis (expanded to [B*beam] for beam search);
@@ -106,9 +114,17 @@ class DecoderStep(nn.Module):
         pre["WO"] = torch.stack([w[1] for w in sw], dim=0).to(cd)  # [NB, VH, VH]
         pre["ln_scale"] = torch.stack([w[2] for w in sw], dim=0)  # [NB, VH]
         pre["ln_bias"] = torch.stack([w[3] for w in sw], dim=0)
-        pre["Wv"] = self.word_restore.kernel(cd)  # [Hd, V]
+        pre["Wv"] = self.word_restore.kernel(cd)  # [Hd, V], or this rank's columns
         pre["bv"] = self.word_restore.bias.float()
         return pre
+
+    def vocab_logits(self, out: torch.Tensor, pre: Pre) -> torch.Tensor:
+        """fp32 logits [B, V] of `out` [B, Hd]. With the head split over the
+        model axis, this rank's columns, then gathered (module doc)."""
+        if self.word_restore.out_shard is None:
+            return matmul_f32(out.to(self.cfg.cdtype), pre["Wv"]) + pre["bv"]
+        local = matmul_f32(copy_to_model(out).to(self.cfg.cdtype), pre["Wv"]) + pre["bv"]
+        return gather_from_model(local)
 
     def decode_hidden(self, word, query_h, query_c, lang_h, lang_c, pre: Pre,
                       rng: Optional[torch.Generator] = None):
@@ -155,8 +171,7 @@ class DecoderStep(nn.Module):
         out, q_h, q_c, l_h, l_c, alpha = self.decode_hidden(
             word, query_h, query_c, lang_h, lang_c, pre, rng
         )
-        logits = matmul_f32(out.to(self.cfg.cdtype), pre["Wv"]) + pre["bv"]
-        return logits, q_h, q_c, l_h, l_c, alpha
+        return self.vocab_logits(out, pre), q_h, q_c, l_h, l_c, alpha
 
 
 class Decoder(nn.Module):
@@ -264,9 +279,15 @@ class Decoder(nn.Module):
 
     def vocab_head_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(kernel [Hd, V] in compute dtype, bias [V] fp32) for the fused head,
-        fetched once per decode."""
+        fetched once per decode; this rank's columns when the head is split
+        over the model axis (`vocab_head_shard`)."""
         wr = self.step.word_restore
         return wr.kernel(self.cfg.cdtype), wr.bias.float()
+
+    def vocab_head_shard(self) -> Optional[Tuple[int, int]]:
+        """(first column, whole vocabulary) of this rank's split of the
+        head, or None when it holds the whole head."""
+        return self.step.word_restore.out_shard
 
     def init_beam_state(self, feats, feats2) -> Tuple[State, Pre]:
         """Initial (state, pre) for beam search."""

@@ -31,6 +31,9 @@ class _BeamDecodeMixin:
     def decoder_vocab_head(self):
         return self.decoder.vocab_head_weights()
 
+    def decoder_vocab_shard(self):
+        return self.decoder.vocab_head_shard()
+
     def decoder_init_beam_state(self, feats, feats2):
         return self.decoder.init_beam_state(feats, feats2)
 

@@ -16,7 +16,7 @@ are independent, and world size 1 draws the single-process mask.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,7 +133,12 @@ def xavier_normal_(w: torch.Tensor, generator=None) -> torch.Tensor:
 
 class Dense(nn.Module):
     """flax `nn.Dense`: input, weight and bias are cast to `dtype` and the
-    output comes back in `dtype`. Weight is stored as [out, in] in fp32."""
+    output comes back in `dtype`. Weight is stored as [out, in] in fp32.
+
+    Split over a mesh's model axis (`parallel/mesh.py::shard_params`), it
+    holds the rows of its output columns `out_shard[0]` onward, of
+    `out_shard[1]` in all, and its user gathers the output (the vocab head:
+    `DecoderStep.vocab_logits`); `out_shard` is None for a whole layer."""
 
     def __init__(
         self,
@@ -148,6 +153,7 @@ class Dense(nn.Module):
         self.kernel_init = kernel_init
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.out_shard: Optional[Tuple[int, int]] = None
 
     def reset_parameters(self, generator=None) -> None:
         init = xavier_normal_ if self.kernel_init == "xavier_normal" else lecun_normal_

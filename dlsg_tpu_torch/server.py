@@ -10,8 +10,10 @@ pre-extracted feature clips over HTTP. Stdlib-only
 Protocol
 --------
 - ``GET /healthz`` -> ``{"status": "ok", "dataset", "device", "device_name",
-  "devices", "beam_size", "warm"}``: the torch device the Captioner runs on,
-  its name (the card's, or "cpu") and the number of CUDA cards visible
+  "devices", "beam_size", "warm", "world", "mesh"}``: the torch device the
+  Captioner runs on, its name (the card's, or "cpu"), the number of CUDA
+  cards visible, the number of ranks serving and the Captioner's mesh
+  (``{"data": n, "model": m}``)
 - ``POST /caption`` with either body format:
 
   * ``application/x-npz`` (or any non-JSON type): an ``.npz`` payload with
@@ -32,6 +34,15 @@ Concurrency: request handling threads serialize around the device via one
 lock — the card is already batch-parallel inside a single decode call, so
 concurrent decodes would only interleave (and fragment) device work. Clients
 get throughput by batching clips per request, not by parallel requests.
+
+Several cards (one process each, a Captioner with `mesh=` on every rank):
+the JAX package serves its whole mesh from one process; here the leader
+(rank 0) runs the CaptionServer and every other rank runs `follow`. For each
+request the leader broadcasts a header (the arrays' shapes and the greedy
+flag), then the frames and regions, and every rank runs `caption` on them
+(each decodes its data block; the ids are gathered). `server_close` on the
+leader broadcasts a stop header, which ends every `follow`. `/healthz` also
+reports the world size and the mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dlsg_tpu_torch.parallel import dist
 from dlsg_tpu_torch.serve import Captioner, jsonable_id
 
 # one request must fit comfortably in host memory; 512 MB of features is
@@ -81,18 +93,55 @@ def _parse_body(body: bytes, content_type: str):
     return frames, regions, vids
 
 
+_STOP, _CAPTION = 0, 1
+_HEADER = 9  # op, greedy, frames [N, T, F], regions [N, T, O, R]
+
+
+def _send_request(op: int, frames=None, regions=None, greedy: bool = False) -> None:
+    """The leader's half of one request to the followers."""
+    header = np.zeros(_HEADER, np.int64)
+    header[0], header[1] = op, int(greedy)
+    if op == _CAPTION:
+        header[2:5], header[5:9] = frames.shape, regions.shape
+    dist.broadcast_from_leader(torch.from_numpy(header))
+    if op == _CAPTION:
+        dist.broadcast_from_leader(torch.from_numpy(np.ascontiguousarray(frames, np.float32)))
+        dist.broadcast_from_leader(torch.from_numpy(np.ascontiguousarray(regions, np.float32)))
+
+
+def follow(captioner: Captioner) -> int:
+    """The loop of a rank other than the leader's: receive each request
+    the leader broadcasts, caption it with the other ranks, until the stop
+    header. Returns the number of requests served."""
+    served = 0
+    while True:
+        header = dist.broadcast_from_leader(torch.zeros(_HEADER, dtype=torch.int64)).numpy()
+        if header[0] == _STOP:
+            return served
+        frames, regions = (dist.broadcast_from_leader(torch.empty(tuple(shape), dtype=torch.float32))
+                           .numpy() for shape in (header[2:5], header[5:9]))
+        captioner.caption(frames, regions, greedy=bool(header[1]))
+        served += 1
+
+
 # request-latency histogram bucket bounds (seconds); decode latencies span
 # tens of milliseconds (warm small bucket) to seconds (a cold first request)
 LATENCY_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
 
 
 class CaptionServer(ThreadingHTTPServer):
-    """HTTP server bound to one Captioner. `port=0` picks a free port."""
+    """HTTP server bound to one Captioner. `port=0` picks a free port.
+    Inside a process group it runs on the leader, with `follow` on every
+    other rank (module doc)."""
 
     daemon_threads = True
 
     def __init__(self, captioner: Captioner, host: str = "0.0.0.0", port: int = 8000):
         self.captioner = captioner
+        self.group_size = dist.world_size()
+        if self.group_size > 1 and not dist.is_leader():
+            raise RuntimeError("CaptionServer runs on the leader; other ranks run server.follow")
+        self._stopped = False
         self.device_lock = threading.Lock()
         self.stats_lock = threading.Lock()
         self.started = time.time()
@@ -155,6 +204,21 @@ class CaptionServer(ThreadingHTTPServer):
             ]
         return "\n".join(lines) + "\n"
 
+    def caption(self, frames, regions, greedy: bool = False):
+        """`captioner.caption`, with the followers fed first (module doc).
+        Call it under `device_lock`."""
+        if self.group_size > 1:
+            _send_request(_CAPTION, frames, regions, greedy)
+        return self.captioner.caption(frames, regions, greedy=greedy)
+
+    def server_close(self) -> None:
+        """Close the socket; inside a process group, stop the followers."""
+        with self.device_lock:
+            if self.group_size > 1 and not self._stopped:
+                _send_request(_STOP)
+            self._stopped = True
+        super().server_close()
+
     def start_background(self) -> threading.Thread:
         t = threading.Thread(target=self.serve_forever, daemon=True)
         t.start()
@@ -197,6 +261,9 @@ class _Handler(BaseHTTPRequestHandler):
             "devices": torch.cuda.device_count(),
             "beam_size": cap.cfg.beam_size,
             "warm": cap.warm,
+            "world": self.server.group_size,
+            "mesh": ({"data": cap.mesh.n_data, "model": cap.mesh.n_model}
+                     if cap.mesh is not None else {"data": 1, "model": 1}),
         })
 
     def do_POST(self):
@@ -237,9 +304,7 @@ class _Handler(BaseHTTPRequestHandler):
         t0 = time.perf_counter()
         try:
             with self.server.device_lock:
-                sentences = self.server.captioner.caption(
-                    frames, regions, greedy=greedy
-                )
+                sentences = self.server.caption(frames, regions, greedy=greedy)
         except Exception as e:  # noqa: BLE001 - surface decode failures as 500
             self.server.record(None, error=True)
             return self._send(500, {"error": f"decode failed: {type(e).__name__}: {e}"})

@@ -16,19 +16,28 @@ With `loader_workers > 0` an HDF5 training set is read by that many worker
 processes (`data/parallel_loader.py`), as in the JAX package; a dataset
 without `spawn_spec` (the synthetic one) is read in-process.
 
-Data parallelism: inside a process group (parallel/dist.py, one process
-per card as `torchrun` starts them) each rank trains on its shard of every
-epoch (the rank and world size come from the group) with the
-global-batch steps of train/steps.py, and evaluates its shard of the eval
-set before the gather; every rank scores the merged set. Only the leader
-(rank 0) prints, logs, plots, traces and saves; every rank waits at a
-barrier after each save point. `train_batch_size` is the per-rank batch, as
-the per-host batch is in the JAX package.
+Parallelism: inside a process group (parallel/dist.py, one process per
+card as `torchrun` starts them) the ranks form the mesh of
+`cfg.mesh_data_axis` x `cfg.mesh_model_axis` (parallel/mesh.py; -1 data
+takes the rest of the world), or the mesh passed as `mesh=`. Each data
+index trains on its shard of every epoch with the global-batch steps of
+train/steps.py and evaluates its shard of the eval set before the gather;
+every rank scores the merged set. With a model axis > 1 the generator is
+built whole from the seed (and the checkpoint) on every rank and then keeps
+its rows of the vocab head and their Adam moments (`shard_train_state`, as
+JAX initialises and then lays the state out); model peers hold the same
+rows, and the in-training eval decodes with the head split. A vocabulary
+that does not divide by the model axis leaves the head replicated, as in
+JAX (the leader says so once). Only the leader (rank 0) prints, logs, plots
+and traces; a save point gathers the split tensors on every rank and the
+leader writes them whole, and every rank waits at a barrier after it.
+`train_batch_size` is the batch of one data index, as the per-host batch is
+in the JAX package. A model axis > 1 needs a process group (without one the
+mesh is 1 x 1 and `make_mesh` raises).
 
 Not ported yet: the CE baselines `Run`/`RunLegacy` (they need CapBaseline1
 and CapModel). Options that need unported parts raise NotImplementedError
-naming their ROADMAP item (queue 1): GloVe embeddings (`use_glove`, item 7)
-and the mesh's model axis (`mesh_model_axis > 1`, item 6b).
+naming their ROADMAP item (queue 1): GloVe embeddings (`use_glove`, item 7).
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from dlsg_tpu_torch.evaluation.results import ResultHandler
 from dlsg_tpu_torch.models.discriminator import DiscV2
 from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.parallel import dist
+from dlsg_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_train_state, whole_state_dict
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer, multistep_lr
 from dlsg_tpu_torch.train.schedule import saving_schedule, scheduled_sampling_epsilon
@@ -72,20 +82,10 @@ def _refuse_unported(cfg: DLSGConfig) -> None:
         raise NotImplementedError(
             "use_glove: GloVe embeddings are not ported yet (ROADMAP queue 1, item 7)"
         )
-    if cfg.mesh_model_axis > 1:
-        raise NotImplementedError(
-            "mesh_model_axis > 1: the model axis (tensor parallelism) is not "
-            "ported yet (ROADMAP queue 1, item 6b)"
-        )
     if not dist.is_distributed() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise RuntimeError(
             "WORLD_SIZE > 1 but no process group: pass --distributed (or call "
             "parallel.init_distributed) in every process"
-        )
-    if cfg.mesh_data_axis not in (-1, dist.world_size()):
-        raise ValueError(
-            f"mesh_data_axis={cfg.mesh_data_axis}: the data axis is the world size "
-            f"({dist.world_size()}); leave it at -1"
         )
     if cfg.use_pallas_lstm:
         raise ValueError(
@@ -109,10 +109,15 @@ class _TrainerBase:
         is_debug: bool = True,
         resume_epoch: Optional[Union[int, str]] = None,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
         cfg = apply_dataset_overrides(cfg)
         _refuse_unported(cfg)
+        if mesh is None:
+            mesh = make_mesh(cfg.mesh_data_axis, cfg.mesh_model_axis)
+        dist.set_mesh(mesh)
+        self.mesh = mesh
         self.cfg = cfg
         self.vocab = vocab
         self.train_dataset = train_dataset
@@ -172,8 +177,8 @@ class _TrainerBase:
         (`spawn_spec`), else in-process. The pool starts once and persists
         across epochs; `_close_loader` stops it."""
         cfg = self.cfg
-        shard = dict(seed=cfg.seed, epoch=epoch, shard_index=dist.rank(),
-                     num_shards=dist.world_size())
+        shard = dict(seed=cfg.seed, epoch=epoch, shard_index=dist.data_rank(),
+                     num_shards=dist.data_size())
         if cfg.loader_workers > 0 and hasattr(self.train_dataset, "spawn_spec"):
             if self._worker_pool is None:
                 self._worker_pool = WorkerPool(
@@ -204,7 +209,7 @@ class _TrainerBase:
         scores, results, alpha_all, infer_time = evaluate(
             self.decode_fn,
             eval_batches(self.eval_dataset, cfg.test_batch_size,
-                         shard_index=dist.rank(), num_shards=dist.world_size()),
+                         shard_index=dist.data_rank(), num_shards=dist.data_size()),
             self.vocab,
             self.test_reference,
             stage_dtype=cfg.stage_dtype,
@@ -266,10 +271,30 @@ class RunGAN(_TrainerBase):
                 self.lambda_state = restored["gan_lambda_state"]
             self.last_epoch = restored["epoch"]
         # every rank starts from rank 0's weights (they are equal already:
-        # the same seed, or the same checkpoint)
+        # the same seed, or the same checkpoint), whole
         for model in (self.gen_model, self.disc_model):
             if model is not None:
                 dist.broadcast_module(model)
+        # then keeps its rows of the vocab head and of its Adam moments
+        if not shard_train_state(self.gen_state, self.mesh) and self.mesh.n_model > 1:
+            self._print(
+                f"mesh_model_axis={self.mesh.n_model} does not divide the {V}-word "
+                "vocabulary: the vocab head stays replicated (as in the JAX package)"
+            )
+
+    def _save_point(self, epoch: int, trigger: Optional[str]) -> None:
+        """The best model (when the leader's `trigger` names its metric; the
+        other ranks get None) and the epoch's train checkpoint: split
+        tensors gathered on every rank, written whole by the leader; then a
+        barrier."""
+        cfg = self.cfg
+        if self.result_handler.save_enabled:
+            params = whole_state_dict(self.gen_model)  # every rank joins the gather
+            if self.is_leader and trigger:
+                ckpt.save_model(cfg.checkpoint_dir, f"best_{trigger}", params)
+            ckpt.save_train(cfg.checkpoint_dir, epoch, self.gen_state, self.disc_state,
+                            lambda_state=self.lambda_state)
+        dist.barrier()  # no rank runs ahead of a checkpoint being written
 
     def train(self) -> ResultHandler:
         """Train from `last_epoch + 1` to `cfg.epoch_num`, inside a process
@@ -283,7 +308,7 @@ class RunGAN(_TrainerBase):
         cfg = self.cfg
         # every rank runs exactly `steps` steps: a rank whose shard holds one
         # more batch would enter a collective alone and hang
-        steps = len(self.train_dataset) // cfg.train_batch_size // dist.world_size()
+        steps = len(self.train_dataset) // cfg.train_batch_size // dist.data_size()
         total_step = max(1, steps)
         loss_count = loss_count_g = loss_count_d = 0.0
 
@@ -375,15 +400,7 @@ class RunGAN(_TrainerBase):
                             _consume(pending)
                             pending = None
                         scores, trigger = self._run_eval(epoch, global_step)
-                        if self.is_leader and self.result_handler.save_enabled:
-                            if trigger:
-                                ckpt.save_model(cfg.checkpoint_dir, f"best_{trigger}",
-                                                self.gen_model.state_dict())
-                            ckpt.save_train(
-                                cfg.checkpoint_dir, epoch, self.gen_state, self.disc_state,
-                                lambda_state=self.lambda_state,
-                            )
-                        dist.barrier()  # no rank runs ahead of a checkpoint being written
+                        self._save_point(epoch, trigger)
             finally:
                 batches.close()
 

@@ -173,6 +173,29 @@ def test_vocab_head_fp32_keeps_fp32_accuracy(card):
     assert err <= max(3 * plain_err, 2e-6), (err, plain_err)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G,H,V,k", [(640, 1536, 5000, 5), (130, 200, 2177, 8)])
+def test_vocab_head_returns_the_row_logsumexp(card, G, H, V, k, dtype):
+    """`return_lse`: the merge launch writes each row's logsumexp, as
+    `torch.logsumexp` of the plain logits, on both tile forms (V = 5000 is
+    one rank's columns of the 10 000-word head split over 2); the values and
+    ids are those of the call without it, and it is one launch."""
+    h = _rand(G, H, seed=G + 1).to(card)
+    w = (_rand(H, V, seed=H + 1) / H**0.5).to(card, dtype)
+    b = _rand(V, seed=V + 1).to(card)
+    logits = h.to(dtype).float() @ w.float() + b
+    for normalize in (True, False):
+        before = VOCAB_LIB.launches
+        vals, ids, lse = vocab_head_topk(h, w, b, k, normalize=normalize, return_lse=True)
+        torch.cuda.synchronize()
+        assert VOCAB_LIB.launches == before + 1 and lse.shape == (G,) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), rtol=0, atol=1e-4)
+        v2, i2 = vocab_head_topk(h, w, b, k, normalize=normalize)
+        assert torch.equal(vals, v2) and torch.equal(ids, i2)
+        pv, pi, plse = vocab_head_topk_plain(h, w, b, k, normalize=normalize, return_lse=True)
+        torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+
+
 def test_vocab_head_ties_go_to_lowest_id(card):
     h = torch.zeros(4, 8, device=card)
     w = torch.zeros(8, 300, device=card)

@@ -54,9 +54,9 @@ WORLD = 2
 LENGTHS = {"even": [3, 9, 5, 2, 9, 2, 5, 3], "uneven": [9, 9, 8, 9, 2, 2, 3, 2]}
 
 
-def launch_ranks(job: str, work_dir, n: int = WORLD, tag: str = None) -> list:
-    """Start `n` worker processes of `job` with torchrun's environment, or
-    with n=0 one process with no process group; each writes
+def launch_ranks(job: str, work_dir, n: int = WORLD, tag: str = None, worker: str = WORKER) -> list:
+    """Start `n` processes of `worker`'s `job` with torchrun's environment,
+    or with n=0 one process with no process group; each writes
     work_dir/<tag or job>_<rank>.pt."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -69,7 +69,7 @@ def launch_ranks(job: str, work_dir, n: int = WORLD, tag: str = None) -> list:
             env.update(RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r),
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         procs.append(subprocess.Popen(
-            [sys.executable, WORKER, job, str(work_dir), str(work_dir / f"{tag or job}_{r}.pt")],
+            [sys.executable, worker, job, str(work_dir), str(work_dir / f"{tag or job}_{r}.pt")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     return procs
@@ -335,7 +335,13 @@ def test_cuda_means_this_ranks_card_inside_a_group(monkeypatch, local_rank, curr
 
 
 @pytest.mark.parametrize("command", ["serve", "export"])
-def test_serve_and_export_refuse_distributed(command, capsys):
-    assert cli_main([command, "--synthetic", "--allow_random_params", "--distributed",
-                     "--device", "cpu"]) == 2
-    assert "item 6b" in capsys.readouterr().err
+def test_serve_and_export_refuse_distributed(command, monkeypatch):
+    """Both run under a process group since the model axis came
+    (tests/test_torch_mesh.py); outside torchrun's environment they refuse
+    `--distributed`, as train and evaluate do."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="launch with torchrun"):
+        cli_main([command, "--synthetic", "--allow_random_params", "--distributed",
+                  "--device", "cpu"])
+    assert not dist.is_distributed()

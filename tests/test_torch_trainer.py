@@ -208,13 +208,14 @@ def test_one_gan_epoch_writes_everything_and_serves_its_best_model(tmp_path):
 def test_unported_options_raise(tmp_path):
     for kw, match in (
         (dict(use_glove=True), "item 7"),
-        (dict(mesh_data_axis=2), "the data axis is the world size"),
-        (dict(mesh_model_axis=2), "item 6b"),
+        (dict(mesh_data_axis=2), "= 2 ranks, but the world size is 1"),
+        # the model axis needs a process group: no quiet replicated run
+        (dict(mesh_model_axis=2), r"mesh_model_axis=2 does not divide the world size 1 \(no process group"),
         (dict(use_pallas_lstm=True), "no backward"),
     ):
         with pytest.raises((NotImplementedError, ValueError), match=match):
             _gan_runner(tmp_path, 1, **kw)
-    # the data axis is the world size: one process, 1 or -1
+    # the mesh is the world: one process, 1 x 1 or -1 x 1
     assert _gan_runner(tmp_path, 1, mesh_data_axis=1).cfg.mesh_data_axis == 1
     # ported since: the worker pool (item 4; the synthetic set is read
     # in-process, as in JAX) and the two-pass decode (item 5)

@@ -186,12 +186,13 @@ def test_jsonable_id_matches_jax():
         assert type(jsonable_id(vid)) is type(jax_jsonable_id(vid))
 
 
-# JAX exports with no counterpart of the same name: the mesh helpers (the
-# port's parallel/ is torch.distributed), ParallelBatcher (the port's worker
-# pool is data/parallel_loader.py::WorkerPool) and the baseline generators
+# JAX exports with no counterpart of the same name: the XLA placement
+# helpers (the port's collectives are explicit: parallel/mesh.py has no
+# arrays to place), ParallelBatcher (the port's worker pool is
+# data/parallel_loader.py::WorkerPool) and the baseline generators
 # (ROADMAP queue 1, item 7a)
 NOT_EXPORTED = {
-    "parallel": {"make_mesh", "batch_sharding", "replicated", "shard_batch"},
+    "parallel": {"batch_sharding", "replicated", "shard_batch"},
     "data": {"ParallelBatcher"},
     "models": {"CapModel", "CapBaselineModel", "CapBaseline1"},
 }
