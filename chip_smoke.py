@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive dlsg_tpu_torch's beam-5 serving path (the Captioner, the two-pass
 decode, the HTTP server, `cli serve`/`export`), its GAN train step, its
-trainer, its C++ scorer, its data parallelism and its model axis on one
-NVIDIA GPU.
+trainer, its baseline generators and their CE trainers, its C++ scorer, its
+data parallelism and its model axis on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -85,6 +85,28 @@ line per phase:
    restore_train seconds and bytes, and peak memory. Its evals score
    through the C++ tokenizer and METEOR aligner (the line counts the pairs
    aligned there);
+6a. baselines: (a) CapModel, CapBaseline1 and CapBaselineModel at the
+   serving config (MSR-VTT widths, bf16, use_pallas_lstm, fused vocab head,
+   10 000 words, seeded random weights): the beam-5 decode of 128 clips
+   through both kernels, K2 twice and K1 once a beam step on the
+   tensor-core tiles, held to the serving phase's three agreement rules
+   against the same decode through the plain versions; each decode's and
+   encode's ms (median of 7 CUDA-event timings). Then the CE step of
+   CapBaseline1 and CapModel's own at MSR-VTT widths, bf16, batch 128
+   (median of 3 after a warm-up, peak memory, no kernel launched), and one
+   fp32 CE step of CapBaseline1 at tiny dims on the card against the CPU
+   (Adam moments within MOMENT_TOL, lr MOMENT_CHECK_LR). (b) `cli
+   train-base --synthetic` and `cli train-legacy --synthetic` at MSR-VTT
+   widths (bf16, fused head, batch 128, 86 videos x 3 captions: 2 CE steps
+   and an eval after each): exit 0, K1 on the tensor-core tiles on every
+   beam step of each eval decode, seven finite scores, the losses and
+   scores logged, no checkpoint directory; `--resume` exits 2. (c) `cli
+   train-base --use_glove true --freeze_word_embed true` with a GloVe
+   file of 200 vocabulary words at the config's word_size, written here
+   (1 step, 1 eval): those embedding rows on the card equal the file's
+   vectors and the embedding is bitwise unchanged after the step while
+   other parameters move. Launches are counted over (a)'s first decode of
+   each generator and (b)-(c);
 6b. scorer: the 128 26-word captions scored through the C++ path and the
    Python path: all seven scores equal; the seconds of each and of the
    library's build;
@@ -141,8 +163,9 @@ line per phase:
    following, which must answer caption()'s captions and stop the
    follower;
 7. the `kernels` line (times, bounds, launches on each path: serving,
-   two_pass, server, train, trainer, cli_serve, data_parallel,
-   model_axis), the nvidia-smi line, and as the last line
+   two_pass, server, trainer, baselines, cli_serve, data_parallel,
+   model_axis; K2 and K1's tensor-core form must launch on the baselines
+   path), the nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -194,7 +217,10 @@ from dlsg_tpu_torch.data.loader import eval_batches  # noqa: E402
 from dlsg_tpu_torch.data.synthetic import SyntheticDataset, make_vocab  # noqa: E402
 from dlsg_tpu_torch.metrics.scorer import score_captions  # noqa: E402
 from dlsg_tpu_torch.models.discriminator import DiscV2  # noqa: E402
-from dlsg_tpu_torch.models.generator import CapGnnModel  # noqa: E402
+from dlsg_tpu_torch.models.generator import (  # noqa: E402
+    CapBaseline1, CapBaselineModel, CapGnnModel, CapModel,
+)
+from dlsg_tpu_torch.models.glove import WORD_EMBED_KEY  # noqa: E402
 from dlsg_tpu_torch.ops import linear as linear_mod  # noqa: E402
 from dlsg_tpu_torch.ops import lstm as lstm_mod  # noqa: E402
 from dlsg_tpu_torch.ops.linear import matmul_f32  # noqa: E402
@@ -204,7 +230,9 @@ from dlsg_tpu_torch.server import CaptionServer  # noqa: E402
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state  # noqa: E402
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer  # noqa: E402
 from dlsg_tpu_torch.train import trainer as trainer_mod  # noqa: E402
-from dlsg_tpu_torch.train.steps import make_ce_train_step, make_gan_train_step  # noqa: E402
+from dlsg_tpu_torch.train.steps import (  # noqa: E402
+    make_ce_train_step, make_gan_train_step, make_legacy_ce_train_step,
+)
 from dlsg_tpu_torch.vocab import END_ID, Vocabulary  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
@@ -758,7 +786,12 @@ def check_train_card_vs_cpu(compute_dtype: str) -> dict:
                                **{f"D.{k}": v.float().cpu() for k, v in ds.first_moments().items()}}
     finally:
         linear_mod.dropout = saved
-    tol = MOMENT_TOL[compute_dtype]
+    return compare_card_vs_cpu(moments, MOMENT_TOL[compute_dtype], f"{compute_dtype} GAN step")
+
+
+def compare_card_vs_cpu(moments: dict, tol: float, what: str) -> dict:
+    """Adam first moments {"cpu": {name: t}, DEVICE: {...}}: within `tol` of
+    each CPU tensor's max-abs, and none zero on one device only."""
     worst, bad = 0.0, []
     for name, want in moments["cpu"].items():
         got = moments[DEVICE][name]
@@ -771,7 +804,7 @@ def check_train_card_vs_cpu(compute_dtype: str) -> dict:
         if ratio > tol:
             bad.append(f"{name}: {ratio}")
     if bad:
-        raise AssertionError(f"{compute_dtype} card-vs-CPU Adam moments differ: {bad[:8]}")
+        raise AssertionError(f"{what}: card-vs-CPU Adam moments differ: {bad[:8]}")
     return {"tensors": len(moments["cpu"]), "worst_share_of_max_abs": worst, "tolerance": tol}
 
 
@@ -1065,6 +1098,259 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int):
     }
     emit(result)
     return result, ds.references, babble
+
+
+# --------------------------------------------------------------- baselines
+
+# the baselines phase. (b): `cli train-base` / `train-legacy` at MSR-VTT
+# widths, 86 synthetic videos x 3 captions = 2 CE steps of 128 and, by
+# saving_schedule(0, 2), an eval of the 86 clips after each; (c): the GloVe
+# run, 43 x 3 = 1 step and its eval
+BASELINES = (CapModel, CapBaseline1, CapBaselineModel)
+BASE_FLAGS = ["--dataset", "msr-vtt", "--compute_dtype", "bfloat16", "--use_fused_vocab_head", "on",
+              "--synthetic", "--synthetic_vocab", str(VOCAB), "--train_batch_size", str(BATCH),
+              "--test_batch_size", str(BATCH), "--epoch_num", "1", "--no_debug"]
+BASE_VIDEOS = 86
+GLOVE_VIDEOS = 43
+GLOVE_WORDS = 200  # the vocabulary words the GloVe file holds
+
+
+def base_config() -> DLSGConfig:
+    """The config that the commands of BASE_FLAGS run."""
+    return parse_opt(cli._parser().parse_known_args(BASE_FLAGS)[1])
+
+
+def baseline_decode(cls, cfg: DLSGConfig, fr, rg, noise) -> dict:
+    """(a) for one generator: its beam-5 decode of the clips through both
+    kernels (the main path, counted), then, uncounted, its time and its
+    agreement with the same decode through the plain versions under the
+    serving phase's rules."""
+    model = cls(cfg, VOCAB, generator=torch.Generator().manual_seed(SEED + 70), device=DEVICE)
+    decode = make_decode_fn(model, cfg, beam_size=BEAM, device=DEVICE)
+    before = read_launches()
+    ids = decode(fr, rg)
+    torch.cuda.synchronize()
+    launches = {k: n - before[k] for k, n in read_launches().items()}
+    if ids.shape != (BATCH, cfg.max_words) or not bool(((ids >= 0) & (ids < VOCAB)).all()):
+        raise AssertionError(f"{cls.__name__}: the decode gave ids {tuple(ids.shape)} out of range")
+    if launches["lstm_scan"] != 2 or not 1 <= launches["vocab_head"] <= cfg.max_words or \
+            launches["vocab_head[tensor_cores]"] != launches["vocab_head"]:
+        raise AssertionError(f"{cls.__name__}: launches of one decode {launches}")
+    with uncounted():
+        decode_ms = time_ms(lambda: decode(fr, rg), repeats=7, warmup=1, flush=False)
+        with torch.inference_mode():
+            encode_ms = time_ms(lambda: model.encode(fr, rg), repeats=7, flush=False)
+        cfg32 = replace(cfg, compute_dtype="float32")
+        model32 = cls(cfg32, VOCAB, device=DEVICE)
+        model32.load_state_dict(model.state_dict())
+        decode32 = make_decode_fn(model32, cfg32, beam_size=BEAM, device=DEVICE)
+        agree_fp32 = agreement(decode32(fr, rg), decode_plain(decode32, fr, rg))
+        agree_vocab = agreement(ids, decode_plain(decode, fr, rg, lstm=False))
+        plain = decode_plain(decode, fr, rg)
+        agree_bf16 = agreement(ids, plain)
+        floor = agreement(plain, decode_plain(decode, fr * (1 + 1e-6 * noise), rg))
+    if agree_fp32 < TOKEN_AGREEMENT_MIN or agree_vocab < TOKEN_AGREEMENT_MIN or \
+            agree_bf16 < floor - BF16_FLOOR_MARGIN:
+        raise AssertionError(
+            f"{cls.__name__}: token agreement with the plain versions fp32 {agree_fp32}, bf16 "
+            f"vocab head alone {agree_vocab}, bf16 both {agree_bf16} (floor {floor})")
+    return {"decode_ms_b128": decode_ms, "encode_ms_b128": encode_ms,
+            "launches_one_decode": launches,
+            "token_agreement_vs_plain_fp32": agree_fp32,
+            "token_agreement_vs_plain_vocab_head_bf16": agree_vocab,
+            "token_agreement_vs_plain_bf16": agree_bf16,
+            "bf16_plain_self_agreement_input_1e-6": floor}
+
+
+def baseline_ce_step(cls, cfg: DLSGConfig) -> dict:
+    """The generator's CE step at MSR-VTT widths, batch 128: one warm-up
+    step, then the median of 3 by CUDA events, and peak memory. No kernel
+    launches (the train path runs neither, as in JAX)."""
+    model = cls(cfg, VOCAB, generator=torch.Generator().manual_seed(SEED + 72), device=DEVICE)
+    batch = train_batch(cfg, BATCH, VOCAB, SEED + 73, DEVICE)
+    state = TrainState.create(model, make_optimizer(TRAIN_LR))
+    step = (make_legacy_ce_train_step if cls is CapModel else make_ce_train_step)(model, cfg)
+    before = read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch, TRAIN_KEY, SS_EPSILON)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(_finite_metrics(m)["cap_loss"])
+    if read_launches() != before:
+        raise AssertionError(f"{cls.__name__}'s CE step launched a kernel")
+    return {"ce_step_ms_b128": float(np.median(ms[1:])), "ce_step_ms_all": ms[1:],
+            "cap_loss": losses, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def check_ce_card_vs_cpu() -> dict:
+    """One fp32 CE step of CapBaseline1 at tiny dims on the card and on the
+    CPU from the same weights, dropout off, every word gold, lr
+    MOMENT_CHECK_LR: the Adam first moments must agree."""
+    cfg = tiny_test_config()
+    vocab, n = 50, 4
+    batch = train_batch(cfg, n, vocab, SEED + 74, "cpu")
+    moments = {}
+    saved = linear_mod.dropout
+    linear_mod.dropout = lambda x, rate, rng: x
+    try:
+        for device in ("cpu", DEVICE):
+            model = CapBaseline1(cfg, vocab, device=device)  # seeded with cfg.seed
+            state = TrainState.create(model, make_optimizer(MOMENT_CHECK_LR))
+            state, m = make_ce_train_step(model, cfg)(
+                state, {k: v.to(device) for k, v in batch.items()}, TRAIN_KEY, 1.0)
+            _finite_metrics(m)
+            moments[device] = {k: v.float().cpu() for k, v in state.first_moments().items()}
+    finally:
+        linear_mod.dropout = saved
+    return compare_card_vs_cpu(moments, MOMENT_TOL["float32"], "CapBaseline1 fp32 CE step")
+
+
+def baseline_cli(command: str, result_dir: str, videos: int, evals_want: int, extra=()) -> dict:
+    """`cli <command> --synthetic` at MSR-VTT widths (BASE_FLAGS) on the
+    card: exit 0, `evals_want` evals whose decodes launch K1 on the
+    tensor-core tiles on every beam step, all seven scores finite, the
+    losses and scores logged (finite) and no checkpoint directory."""
+    evals = []
+    real_evaluate = trainer_mod.evaluate
+
+    def counted_evaluate(*args, **kw):
+        k1, tc = VOCAB_LIB.launches, ROUTE_LAUNCHES["tensor_cores"]
+        t = time.perf_counter()
+        out = real_evaluate(*args, **kw)
+        evals.append({"seconds": time.perf_counter() - t, "infer_s": out[3],
+                      "k1_launches": VOCAB_LIB.launches - k1,
+                      "k1_tensor_core_launches": ROUTE_LAUNCHES["tensor_cores"] - tc,
+                      "scores": out[0]})
+        return out
+
+    trainer_mod.evaluate = counted_evaluate
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = cli.main([command, "--result_dir", result_dir, "--synthetic_videos", str(videos)]
+                          + BASE_FLAGS + list(extra))
+    finally:
+        trainer_mod.evaluate = real_evaluate
+    seconds = time.perf_counter() - t
+    max_words = base_config().max_words
+    problems = []
+    if rc != 0 or len(evals) != evals_want:
+        problems.append(f"rc {rc}, {len(evals)} evals")
+    for ev in evals:
+        if set(ev["scores"]) != set(SCORE_KEYS) or not all(np.isfinite(list(ev["scores"].values()))):
+            problems.append(f"scores {ev['scores']}")
+        if not 1 <= ev["k1_launches"] <= max_words or ev["k1_tensor_core_launches"] != ev["k1_launches"]:
+            problems.append(f"K1 launches of an eval decode {ev}")
+    if os.path.exists(os.path.join(result_dir, "checkpoints")):
+        problems.append("it wrote a checkpoint directory")
+    scalars = _scalars(result_dir)
+    tags = {tag for tag, _, _ in scalars}
+    if not {"Loss/cap_loss", "results/CIDEr"} <= tags or not all(np.isfinite(v) for _, v, _ in scalars):
+        problems.append(f"scalars.jsonl: {sorted(tags)}")
+    if problems:
+        raise AssertionError(f"cli {command}: {problems}\n{log.getvalue()[-2000:]}")
+    return {"seconds": seconds,
+            "evals": [{k: v for k, v in ev.items() if k != "scores"}
+                      | {"CIDEr": ev["scores"]["CIDEr"]} for ev in evals]}
+
+
+def baseline_glove(work: str) -> dict:
+    """(c): `cli train-base --use_glove true --freeze_word_embed true` with
+    a GloVe text file of GLOVE_WORDS of the vocabulary's words at the
+    config's word_size: their embedding rows on the card equal the file's
+    vectors, and the whole embedding is bitwise unchanged after the step."""
+    word_size = base_config().word_size
+    words = cli._synthetic_vocab(VOCAB).idx2word[4:4 + GLOVE_WORDS]
+    rng = np.random.default_rng(SEED + 75)
+    vectors = [[f"{v:.6f}" for v in rng.normal(size=word_size)] for _ in words]
+    path = os.path.join(work, "glove.txt")
+    with open(path, "w") as f:
+        f.writelines(" ".join([w] + vec) + "\n" for w, vec in zip(words, vectors))
+    runs = []
+    real_train = trainer_mod.Run.train
+
+    def recording_train(self):
+        before = self.gen_model.state_dict()[WORD_EMBED_KEY].clone()
+        params = {k: v.clone() for k, v in self.gen_model.state_dict().items()}
+        out = real_train(self)
+        runs.append((self, before, params))
+        return out
+
+    trainer_mod.Run.train = recording_train
+    try:
+        out = baseline_cli("train-base", os.path.join(work, "results"), GLOVE_VIDEOS, 1,
+                           ["--use_glove", "true", "--freeze_word_embed", "true",
+                            "--glove_txt_path", path, "--data_dir", work])
+    finally:
+        trainer_mod.Run.train = real_train
+    (runner, before, params), = runs
+    after = runner.gen_model.state_dict()
+    ids = [runner.vocab(w) for w in words]
+    want = torch.tensor(np.float64(vectors)).float().to(DEVICE)
+    problems = []
+    if before.device.type != torch.device(DEVICE).type or not torch.equal(before[ids], want):
+        problems.append("the grafted rows differ from the file's vectors")
+    if not torch.equal(after[WORD_EMBED_KEY], before) or runner.gen_state.step != 1:
+        problems.append(f"the frozen embedding moved (steps {runner.gen_state.step})")
+    if all(torch.equal(after[k], v) for k, v in params.items() if k != WORD_EMBED_KEY):
+        problems.append("no other parameter moved")
+    if problems:
+        raise AssertionError(f"glove: {problems}")
+    return {**out, "word_size": word_size, "file_words": len(words),
+            "grafted_rows_equal_file": True, "embedding_unchanged_after_step": True}
+
+
+def phase_baselines() -> dict:
+    """The baseline generators and their CE trainers on the card (module
+    doc, item 6f); every kernel's launches counted over (a)'s decodes and
+    (b)-(c)'s commands."""
+    t_phase = time.perf_counter()
+    cfg = serving_config()
+    fr, rg = (torch.from_numpy(a).to(DEVICE) for a in features(BATCH, cfg, seed=SEED + 71))
+    noise = torch.randn(fr.shape, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                        device=DEVICE)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    decodes = {}
+    for cls in BASELINES:
+        decodes[cls.__name__] = baseline_decode(cls, cfg, fr, rg, noise)
+        torch.cuda.empty_cache()
+    decode_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del fr, rg, noise
+    torch.cuda.empty_cache()
+    train_cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16"))
+    steps = {}
+    for cls in (CapBaseline1, CapModel):
+        steps[cls.__name__] = baseline_ce_step(cls, train_cfg)
+        torch.cuda.empty_cache()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_baselines_")
+    trainers = {cmd: baseline_cli(cmd, os.path.join(work.name, cmd), BASE_VIDEOS, 2)
+                for cmd in ("train-base", "train-legacy")}
+    glove = baseline_glove(work.name)
+    launches = read_launches()
+    resume_rc = {cmd: cli.main([cmd, "--resume", "--synthetic"]) for cmd in ("train-base", "train-legacy")}
+    work.cleanup()
+    if set(resume_rc.values()) != {2}:
+        raise AssertionError(f"--resume: {resume_rc}, want exit 2")
+    if not launches["lstm_scan"] or not launches["vocab_head[tensor_cores]"]:
+        raise AssertionError(f"the baselines path did not launch both kernels: {launches}")
+    result = {
+        "phase": "baselines",
+        "config": "(a) msr-vtt, bf16, use_pallas_lstm, fused vocab head, beam 5, 128 clips; "
+                  "(b)-(c) the trainers' commands at msr-vtt widths, bf16, fused head, batch 128",
+        "decode": decodes, "decode_peak_mem_gb": decode_peak_gb,
+        "ce_steps": steps, "ce_card_vs_cpu_fp32": check_ce_card_vs_cpu(),
+        "trainers": trainers, "glove": glove, "resume_rc": resume_rc,
+        "launches": launches, "seconds": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    return result
 
 # ------------------------------------------------------- the two-pass decode
 
@@ -2035,6 +2321,8 @@ def main() -> None:
         VOCAB, TRAINER_VIDEOS,
     )
     launches["launches_trainer"] = trainer["launches"]
+    torch.cuda.empty_cache()
+    launches["launches_baselines"] = phase_baselines()["launches"]
     torch.cuda.empty_cache()
     launches["launches_data_parallel"] = phase_data_parallel()["launches"]
     phase_scorer(references, captions, scorer_build_s)

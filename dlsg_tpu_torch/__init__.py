@@ -15,9 +15,12 @@ Subpackages
 - ``ops``        : LSTM primitives, exact top-k, beam search, Dense/LayerNorm,
                    dropout, losses (WGAN-GP)
 - ``kernels``    : CUDA kernels (lstm_scan, vocab_head) with plain versions
-- ``models``     : CapGnnModel (encoders, decoder, shared layers), DiscV2
+- ``models``     : CapGnnModel and the baseline generators (CapModel,
+                   CapBaseline1, CapBaselineModel; encoders, decoder, shared
+                   layers), DiscV2, GloVe import
 - ``train``      : Adam train states, schedules, the GAN-lambda machine, the
-                   CE and WGAN-GP train steps, the RunGAN trainer
+                   CE and WGAN-GP train steps, the RunGAN, Run and RunLegacy
+                   trainers
 - ``data``       : HDF5/pickle readers, batchers, a worker-process pool,
                    host -> device prefetch, synthetic data
 - ``metrics``    : PTB tokenizer, BLEU, METEOR, ROUGE-L, CIDEr, COCOScorer
@@ -33,7 +36,8 @@ Subpackages
                    attention heatmaps
 - ``serve``      : load-once Captioner (bucketed batches, warmup)
 - ``server``     : the HTTP captioning service over a Captioner
-- ``cli``        : ``python -m dlsg_tpu_torch.cli train|evaluate|serve|export``
+- ``cli``        : ``python -m dlsg_tpu_torch.cli
+                   train|train-base|train-legacy|evaluate|serve|export``
 
 Entry points run on `cuda` unless the caller passes ``device="cpu"``.
 """

@@ -1,6 +1,8 @@
 """Command-line entry points (counterpart of `dlsg_tpu/cli.py`):
 
 - `python -m dlsg_tpu_torch.cli train`    <- train_debug.py (GAN / D-LSG training)
+- `python -m dlsg_tpu_torch.cli train-base`   <- run_graph.py (CE-only CapBaseline1)
+- `python -m dlsg_tpu_torch.cli train-legacy` <- run.py (frames-only CapModel)
 - `python -m dlsg_tpu_torch.cli evaluate` <- evaluate.py __main__ (score a saved
   generator on the eval split: `--metric best_CIDEr`)
 - `python -m dlsg_tpu_torch.cli serve`    caption clips with a trained model, one
@@ -24,7 +26,9 @@ package's names and defaults, and these:
                          w0, w1, ... up to N words (default: the built-in
                          words alone)
   --no_debug             save models and checkpoints
-  --resume_epoch N|latest, --resume (= --resume_epoch latest)
+  --resume_epoch N|latest, --resume (= --resume_epoch latest); train only:
+                         train-base/train-legacy keep no training
+                         checkpoints and exit 2 on it
   --metric NAME          evaluate/serve/export: the saved model to load
                          (best_CIDEr, ...)
   --torch_checkpoint PT  evaluate/serve/export a reference-trained .pt
@@ -44,19 +48,17 @@ package's names and defaults, and these:
                          --mesh_data_axis x --mesh_model_axis
                          (parallel/mesh.py; data -1 takes the rest):
                            torchrun --nproc_per_node=N -m dlsg_tpu_torch.cli train --distributed ...
-                         train: each data index trains on its shard with
-                         train_batch_size rows a step and evaluates its
-                         shard before the gather; a model axis > 1 splits
-                         the vocab head over the model peers. evaluate: the
-                         same decode. serve: whole parameters on every
-                         rank, each request's rows split over the data
-                         axis (--listen: rank 0 listens, the others follow).
+                         train, train-base, train-legacy: each data index
+                         trains on its shard with train_batch_size rows a
+                         step and evaluates its shard before the gather;
+                         a model axis > 1 splits the vocab head over the
+                         model peers. evaluate: the same decode. serve:
+                         whole parameters on every rank, each request's
+                         rows split over the data axis (--listen: rank 0
+                         listens, the others follow).
                          export: rank 0 writes the bundle, gathered whole.
                          Only rank 0 prints, logs and saves.
                          --mesh_model_axis > 1 needs --distributed (exit 2)
-
-Not ported yet (exit 2): `train-base`, `train-legacy` (ROADMAP queue 1,
-item 7).
 """
 
 from __future__ import annotations
@@ -71,11 +73,8 @@ import time
 from dlsg_tpu_torch.config import parse_opt
 from dlsg_tpu_torch.device import resolve_device
 
-_NOT_PORTED = {
-    "train-base": "the CE baseline trainer is not ported yet (ROADMAP queue 1, item 7)",
-    "train-legacy": "the frames-only trainer is not ported yet (ROADMAP queue 1, item 7)",
-}
-_COMMANDS = ("train", "evaluate", "serve", "export")
+_TRAINERS = ("train", "train-base", "train-legacy")
+_COMMANDS = _TRAINERS + ("evaluate", "serve", "export")
 _METEOR_FILES = (
     ("meteor_paraphrase_file", "DLSG_METEOR_PARAPHRASE_FILE"),
     ("meteor_synonym_file", "DLSG_METEOR_SYNONYM_FILE"),
@@ -216,9 +215,6 @@ def main(argv=None) -> int:
         print(__doc__)
         return 0
     command, rest = argv[0], argv[1:]
-    if command in _NOT_PORTED:
-        print(f"{command}: {_NOT_PORTED[command]}", file=sys.stderr)
-        return 2
     if command not in _COMMANDS:
         print(f"unknown command: {command}\n{__doc__}", file=sys.stderr)
         return 2
@@ -233,13 +229,24 @@ def main(argv=None) -> int:
     cfg = parse_opt(cfg_argv)
     serve_bundle = command == "serve" and extra_ns.bundle
     # the guards need only flags: they run before any data is read
-    if command != "train" and not serve_bundle and not (
+    if command not in _TRAINERS and not serve_bundle and not (
         extra_ns.metric or extra_ns.torch_checkpoint or extra_ns.allow_random_params
     ):
         print(
             f"{command}: no --metric given — this would run a RANDOMLY "
             "INITIALIZED model. Pass --metric best_CIDEr (or another saved "
             "checkpoint name), --torch_checkpoint, or --allow_random_params to force.",
+            file=sys.stderr,
+        )
+        return 2
+    if command in ("train-base", "train-legacy") and extra_ns.resume_epoch is not None:
+        # only the GAN trainer writes/restores full training checkpoints
+        # (reference parity: run_gun.py:302-310 — run_graph.py / run.py never
+        # checkpoint); silently dropping the flag would fake a resume
+        print(
+            f"{command}: --resume/--resume_epoch is only supported by `train` "
+            "(the baseline trainers keep no full training checkpoints, "
+            "matching the reference)",
             file=sys.stderr,
         )
         return 2
@@ -282,14 +289,16 @@ def main(argv=None) -> int:
 
 
 def _run(command, cfg, extra_ns, device, mesh) -> int:
-    if command == "train":
-        from dlsg_tpu_torch.train.trainer import RunGAN
+    if command in _TRAINERS:
+        from dlsg_tpu_torch.train import trainer
 
         vocab, train_ds, eval_ds, reference = _build_datasets(
             cfg, extra_ns.synthetic, extra_ns.synthetic_videos,
             synthetic_vocab=extra_ns.synthetic_vocab,
         )
-        runner = RunGAN(
+        runner_class = {"train": trainer.RunGAN, "train-base": trainer.Run,
+                        "train-legacy": trainer.RunLegacy}[command]
+        runner = runner_class(
             cfg, vocab, train_ds, eval_ds, reference,
             is_debug=not extra_ns.no_debug, resume_epoch=extra_ns.resume_epoch, device=device,
             mesh=mesh,

@@ -1,7 +1,10 @@
 """Decode functions (counterpart of the decode half of
-`dlsg_tpu/evaluation/evaluate.py`): greedy and beam search over a
-CapGnnModel, with the fused vocab-head kernel behind
-`use_fused_vocab_head`.
+`dlsg_tpu/evaluation/evaluate.py`): greedy and beam search over any
+generator of `models/generator.py`, with the fused vocab-head kernel behind
+`use_fused_vocab_head`. Both go through the generator's `encode`, which
+gives the decoder's (feats, feats2): feats2 is None for the single-modal
+generators, whose decoder attends over the T frames, so their attention
+weights are [B, T_words, T_frames] where CapGnnModel's are [B, T_words, 2P].
 
 Scoring is `evaluation/evaluate.py::evaluate`. With `0 <
 decode_two_pass_t1 < max_words` the beam decode runs in two passes
@@ -82,21 +85,24 @@ def make_decode_fn(
 
     The model is moved to `device` (default `cuda`). beam_size None/1 ->
     greedy; else beam search returning the top beam. With `return_alpha` the
-    decode also returns the attention weights of the emitted caption,
-    [B, T, 2P] (for beam search, reconstructed through the backpointers).
-    Inputs may be numpy arrays or tensors; they are moved to `device`."""
+    decode also returns the decoder's attention weights over the emitted
+    caption (module doc: [B, T, 2P], or [B, T, T_frames] for a single-modal
+    generator; for beam search, reconstructed through the backpointers).
+    Inputs may be numpy arrays or tensors; they are moved to `device`. The
+    frames-only generators ignore `regions`, which may be None."""
     device = resolve_device(device)
     model.to(device)
     beam = beam_size if beam_size is not None else cfg.beam_size
 
     def _inputs(frames, regions):
-        return torch.as_tensor(frames, device=device), torch.as_tensor(regions, device=device)
+        return (torch.as_tensor(frames, device=device),
+                None if regions is None else torch.as_tensor(regions, device=device))
 
     if beam <= 1:
 
         @torch.inference_mode()
         def decode_greedy(frames, regions):
-            ids, _, _, alpha = model(*_inputs(frames, regions), None)
+            ids, alpha = model.greedy_decode(*_inputs(frames, regions))
             return (ids, alpha) if return_alpha else ids
 
         return decode_greedy
@@ -168,9 +174,10 @@ def _make_two_pass_fn(
 
 
 def _make_beam_from_feats(model, cfg: DLSGConfig, beam: int) -> Callable:
-    """The proposals -> beam-decode core: fn(obj, mot, max_steps) ->
-    (preds [B, beam, T], log_probs [B, beam], alphas [B, beam, T, 2P],
-    finished [B])."""
+    """The encoder outputs -> beam-decode core: fn(obj, mot, max_steps) ->
+    (preds [B, beam, T], log_probs [B, beam], alphas [B, beam, T, P'],
+    finished [B]), P' the attention's width (module doc); `mot` is None
+    for a single-modal generator."""
     fused = _use_fused_head(cfg)
 
     def beam_from_feats(obj, mot, max_steps: int):

@@ -51,9 +51,11 @@ def evaluate(
     score the captions of the rows its `valid` mask keeps against
     `reference` ({vid: [{"caption": ...}]}, or plain strings).
 
-    alpha_all is [N, T, 2P] fp32 when decode_fn returns (ids, alpha) (built
-    with return_alpha=True), else None. Batch k+1's decode is launched before
-    batch k's tokens are copied to the host; results are consumed in order.
+    alpha_all is the decoder's attention, [N, T, 2P] fp32 (CapGnnModel) or
+    [N, T, T_frames] (a single-modal generator), when decode_fn returns
+    (ids, alpha) (built with return_alpha=True), else None. Batch k+1's
+    decode is launched before batch k's tokens are copied to the host;
+    results are consumed in order.
     `stage_dtype` is the input_stage_dtype policy (cfg.stage_dtype).
 
     Inside a process group (the JAX package's `cross_host_gather`),

@@ -10,6 +10,12 @@
 Dropout: `cfg.dropout` after the Bi-LSTM's LayerNorm and on the
 self-attention output, LatentPSL's own 0.3, in training mode when the
 forward is given a generator `rng`.
+
+`baseline=True` gives the ablation forms of the baseline generators
+(models/generator.py): `EncoderVisual` ends in a plain Dense(2H -> H),
+`out_try`, in place of the self-attention and its LayerNorm;
+`EncoderVisualGraphTUN` returns the aggregated frames [B, T, H] before
+LatentPSL and holds no `v2l_layer`.
 """
 
 from __future__ import annotations
@@ -28,24 +34,34 @@ from dlsg_tpu_torch.ops.lstm import BiLSTM
 
 class EncoderVisual(nn.Module):
     """Linear embed -> Bi-LSTM -> LN -> dropout -> self-attention (+LN): [B, T, F] ->
-    [B, T, H]. `use_pallas_lstm` routes the Bi-LSTM to the lstm_scan kernel."""
+    [B, T, H]; with `baseline`, Dense(2H -> H) in place of the
+    self-attention. `use_pallas_lstm` routes the Bi-LSTM to the lstm_scan
+    kernel."""
 
-    def __init__(self, cfg: DLSGConfig, in_features: int):
+    def __init__(self, cfg: DLSGConfig, in_features: int, baseline: bool = False):
         super().__init__()
         H = cfg.visual_hidden_size
         cd = cfg.cdtype
+        self.baseline = baseline
         self.linear_embed = Dense(in_features, H, dtype=cd, kernel_init="xavier_normal")
         self.lstm = BiLSTM(H, H, dtype=cd, use_pallas=cfg.use_pallas_lstm)
         self.layernorm_lstm = LayerNorm(2 * H)
         self.drop = Dropout(cfg.dropout)
-        self.self_attention = SelfAttention(
-            2 * H, 2 * H, H, get_pe=True, dtype=cd, dropout=cfg.dropout
-        )
-        self.layernorm_sa = LayerNorm(H)
+        if baseline:
+            # JAX gives this Dense no compute dtype: it multiplies at its
+            # input's, the fp32 of the LayerNorm, also under bf16 compute
+            self.out_try = Dense(2 * H, H, kernel_init="xavier_normal")
+        else:
+            self.self_attention = SelfAttention(
+                2 * H, 2 * H, H, get_pe=True, dtype=cd, dropout=cfg.dropout
+            )
+            self.layernorm_sa = LayerNorm(H)
 
     def forward(self, inputs, rng: Optional[torch.Generator] = None):
         x = self.lstm(self.linear_embed(inputs))  # [B, T, 2H] fp32
         x = self.drop(self.layernorm_lstm(x), rng)
+        if self.baseline:
+            return self.out_try(x)
         return self.layernorm_sa(self.self_attention(x, rng=rng))
 
 
@@ -55,9 +71,11 @@ class EncoderVisualGraphTUN(nn.Module):
 
     The adjacency softmax runs over the flattened T*O object axis and is
     scaled by sqrt of the RAW region feature size (reference layer.py:187).
-    With fewer than 5 objects the object branch is skipped."""
+    With fewer than 5 objects the object branch is skipped. With `baseline`
+    the aggregated frames [B, T, H] are returned before LatentPSL."""
 
-    def __init__(self, cfg: DLSGConfig, visual_features: Optional[int], own_obj_embed: bool = True):
+    def __init__(self, cfg: DLSGConfig, visual_features: Optional[int], own_obj_embed: bool = True,
+                 baseline: bool = False):
         """`visual_features` is the input width of `visual_embed`; None means
         no embedding (the motion branch). `own_obj_embed=False` when the
         encoder projects the regions jointly for both branches."""
@@ -73,7 +91,7 @@ class EncoderVisualGraphTUN(nn.Module):
         )
         self.obj_norm = TanhLayerNorm(cfg.region_projected_size, dtype=cd)
         self.obj_visual_norm = TanhLayerNorm(vh, dtype=cd)
-        self.v2l_layer = LatentPSL(vh, cfg.num_proposals)
+        self.v2l_layer = None if baseline else LatentPSL(vh, cfg.num_proposals)
 
     def forward(self, visual_feats, obj_feats, obj_embedded=None,
                 rng: Optional[torch.Generator] = None):
@@ -93,15 +111,18 @@ class EncoderVisualGraphTUN(nn.Module):
             adj = torch.softmax(adj, dim=-1)  # over the T*O object axis
             obj_agg = matmul_f32(adj.to(cd), obj)
             obj_visual = self.obj_visual_norm(obj_agg + visual_embed)
+        if self.v2l_layer is None:  # baseline
+            return obj_visual  # [B, T, H]
         return self.v2l_layer(obj_visual, rng)  # [B, num_psl, H]
 
 
 class CapGnnEncoder(nn.Module):
     """Two branches: EncoderVisualGraphTUN('object') over the appearance
     features; EncoderVisual over the full features, then
-    EncoderVisualGraphTUN('motion') without an embedding."""
+    EncoderVisualGraphTUN('motion') without an embedding. `baseline` goes
+    to both graph branches (CapBaselineModel decodes the motion one)."""
 
-    def __init__(self, cfg: DLSGConfig):
+    def __init__(self, cfg: DLSGConfig, baseline: bool = False):
         super().__init__()
         self.cfg = cfg
         joint = cfg.joint_region_projection
@@ -109,9 +130,11 @@ class CapGnnEncoder(nn.Module):
             Dense(cfg.region_feature_size, 2 * cfg.region_projected_size, dtype=cfg.cdtype)
             if joint else None
         )
-        self.obj_encoder = EncoderVisualGraphTUN(cfg, cfg.a_feature_size, own_obj_embed=not joint)
+        self.obj_encoder = EncoderVisualGraphTUN(cfg, cfg.a_feature_size, own_obj_embed=not joint,
+                                                 baseline=baseline)
         self.motion_pre_encoder = EncoderVisual(cfg, cfg.feature_size)
-        self.motion_encoder = EncoderVisualGraphTUN(cfg, None, own_obj_embed=not joint)
+        self.motion_encoder = EncoderVisualGraphTUN(cfg, None, own_obj_embed=not joint,
+                                                    baseline=baseline)
 
     def forward(
         self, visual_feats, region_feats, rng: Optional[torch.Generator] = None

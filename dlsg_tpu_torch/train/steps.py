@@ -1,7 +1,13 @@
 """Train steps (counterpart of `dlsg_tpu/train/steps.py`; reference
 run_gun.py:147-234 and run_graph.py:109-134).
 
-- CE step: teacher-forced generator forward, masked CE, one Adam update.
+- CE step: teacher-forced generator forward, masked CE, one Adam update, for
+  the generators that take (frames, regions, captions) and return a tuple
+  (CapGnnModel, CapBaseline1, CapBaselineModel); the frames-only CapModel
+  has its own, `make_legacy_ce_train_step` (RunLegacy's step in the JAX
+  package, reference run.py). A parameter the loss does not reach (the
+  object branch of CapBaselineModel) gets a zero gradient, as under
+  jax.grad: its Adam moments stay zero and it does not move.
 - GAN step: a generator forward with its outputs detached for the D phase;
   `num_D_visual` WGAN-GP discriminator substeps, each scoring real | fake in
   one `groups=2` pass and running the gradient penalty separately at B; then
@@ -36,6 +42,7 @@ import torch
 from torch import nn
 
 from dlsg_tpu_torch.config import DLSGConfig
+from dlsg_tpu_torch.models.generator import CapModel
 from dlsg_tpu_torch.ops.losses import (
     GP_WEIGHT,
     batch_share,
@@ -80,13 +87,11 @@ def _device(module: nn.Module) -> torch.device:
     return next(module.parameters()).device
 
 
-def _batch(batch: Mapping[str, Any], device) -> List[torch.Tensor]:
-    """(frames, regions, captions, lengths) as tensors on `device`."""
-    frames, regions, captions, lengths = (
-        torch.as_tensor(batch[k], device=device)
-        for k in ("frames", "regions", "captions", "lengths")
-    )
-    return [frames, regions, captions.long(), lengths]
+def _batch(batch: Mapping[str, Any], device, keys=("frames", "regions", "captions", "lengths")
+           ) -> List[torch.Tensor]:
+    """The batch's `keys` as tensors on `device`, captions as int64."""
+    return [torch.as_tensor(batch[k], device=device).long() if k == "captions"
+            else torch.as_tensor(batch[k], device=device) for k in keys]
 
 
 def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -98,22 +103,43 @@ def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Ten
     return all_reduce_grads(grads)
 
 
-def make_ce_train_step(model: nn.Module, cfg: DLSGConfig):
-    """CE-only generator step: step(state, batch, key, epsilon) ->
-    (state, {"cap_loss", "sample_tokens"})."""
+def _ce_step(model: nn.Module, keys: Sequence[str], logits):
+    """step(state, batch, key, epsilon) -> (state, {"cap_loss",
+    "sample_tokens"}), the logits from `logits(*tensors of keys, epsilon,
+    rng)` in training mode."""
 
     def step(state: TrainState, batch: Mapping[str, Any], key: int, epsilon: float):
         dev = _device(model)
-        frames, regions, captions, lengths = _batch(batch, dev)
+        inputs = _batch(batch, dev, keys)
+        captions, lengths = inputs[-2:]
         rng = step_generator(key, state.step, dev)
         with _training(model):
-            out, *_ = model(frames, regions, captions, epsilon, rng=rng)
+            out = logits(*inputs[:-1], epsilon, rng)
         loss = masked_cross_entropy(out, captions, lengths)
         state.apply_gradients(_grads(loss, state.params))
         return state, {"cap_loss": global_sum(loss.detach()),
                        "sample_tokens": out[0].detach().argmax(-1)}
 
     return step
+
+
+def make_ce_train_step(model: nn.Module, cfg: DLSGConfig):
+    """CE-only generator step of a (frames, regions, captions) generator:
+    step(state, batch, key, epsilon) -> (state, {"cap_loss",
+    "sample_tokens"})."""
+    if isinstance(model, CapModel):  # (frames, captions) -> logits alone
+        raise TypeError("CapModel takes no region features: its CE step is "
+                        "make_legacy_ce_train_step")
+    return _ce_step(model, ("frames", "regions", "captions", "lengths"),
+                    lambda frames, regions, captions, epsilon, rng:
+                    model(frames, regions, captions, epsilon, rng=rng)[0])
+
+
+def make_legacy_ce_train_step(model: nn.Module, cfg: DLSGConfig):
+    """The frames-only CapModel's CE step (RunLegacy's in the JAX package,
+    reference run.py): the same step without region features."""
+    return _ce_step(model, ("frames", "captions", "lengths"),
+                    lambda frames, captions, epsilon, rng: model(frames, captions, epsilon, rng=rng))
 
 
 def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGConfig):

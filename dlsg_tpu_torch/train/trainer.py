@@ -1,11 +1,22 @@
-"""The D-LSG adversarial trainer (counterpart of `RunGAN` in
-`dlsg_tpu/train/trainer.py`; reference `run_gun.py:RunGAN`).
+"""Trainers (counterpart of `dlsg_tpu/train/trainer.py`):
 
-`RunGAN`: dataset hparam overrides, Adam + MultiStepLR for G and D, the
-adaptive GAN lambda, scheduled sampling, mid-epoch eval on a saving
-schedule, best-metric model saving, full-epoch checkpoints, scalar logging
-and resume. Everything here is host-side orchestration; the per-batch work
-is one call of a train step (train/steps.py).
+- `RunGAN`, the D-LSG adversarial trainer (reference `run_gun.py:RunGAN`):
+  dataset hparam overrides, Adam + MultiStepLR for G and D, the adaptive GAN
+  lambda, scheduled sampling, mid-epoch eval on a saving schedule,
+  best-metric model saving, full-epoch checkpoints, scalar logging and
+  resume;
+- `Run`, the CE-only baseline trainer over CapBaseline1 (reference
+  `run_graph.py:Run`), and `RunLegacy`, the frames-only trainer over
+  CapModel (reference `run.py`): G's MultiStepLR, the per-epoch scheduled
+  sampling epsilon, evals on the saving schedule, scalar logging. As in the
+  reference and the JAX package they save no checkpoint and take no
+  resume. Their evals decode with the beam and plot no attention.
+
+Everything here is host-side orchestration; the per-batch work is one call
+of a train step (train/steps.py). `use_glove` grafts GloVe vectors into the
+word embedding of RunGAN's and Run's generator when it is built
+(models/glove.py); `freeze_word_embed` keeps it out of their optimizers.
+RunLegacy does neither, as in the JAX package.
 
 A step's random draws come from (cfg.seed, the generator's step counter)
 and an epoch's batch order from (cfg.seed, epoch). An `epoch_N` checkpoint
@@ -34,10 +45,6 @@ leader writes them whole, and every rank waits at a barrier after it.
 `train_batch_size` is the batch of one data index, as the per-host batch is
 in the JAX package. A model axis > 1 needs a process group (without one the
 mesh is 1 x 1 and `make_mesh` raises).
-
-Not ported yet: the CE baselines `Run`/`RunLegacy` (they need CapBaseline1
-and CapModel). Options that need unported parts raise NotImplementedError
-naming their ROADMAP item (queue 1): GloVe embeddings (`use_glove`, item 7).
 """
 
 from __future__ import annotations
@@ -60,13 +67,18 @@ from dlsg_tpu_torch.evaluation.decode import make_decode_fn
 from dlsg_tpu_torch.evaluation.evaluate import evaluate
 from dlsg_tpu_torch.evaluation.results import ResultHandler
 from dlsg_tpu_torch.models.discriminator import DiscV2
-from dlsg_tpu_torch.models.generator import CapGnnModel
+from dlsg_tpu_torch.models.generator import CapBaseline1, CapGnnModel, CapModel
+from dlsg_tpu_torch.models.glove import graft_word_embedding, load_glove_matrix
 from dlsg_tpu_torch.parallel import dist
 from dlsg_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_train_state, whole_state_dict
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer, multistep_lr
 from dlsg_tpu_torch.train.schedule import saving_schedule, scheduled_sampling_epsilon
-from dlsg_tpu_torch.train.steps import make_ce_train_step, make_gan_train_step
+from dlsg_tpu_torch.train.steps import (
+    make_ce_train_step,
+    make_gan_train_step,
+    make_legacy_ce_train_step,
+)
 from dlsg_tpu_torch.utils.logging import MetricsWriter
 from dlsg_tpu_torch.utils.plots import plot_alpha_all
 from dlsg_tpu_torch.utils.profiler import Stopwatch, start_trace, stop_trace
@@ -77,11 +89,7 @@ D_LR_MILESTONES = (1, 4)  # run_gun.py:99
 LR_GAMMA = 0.5
 
 
-def _refuse_unported(cfg: DLSGConfig) -> None:
-    if cfg.use_glove:
-        raise NotImplementedError(
-            "use_glove: GloVe embeddings are not ported yet (ROADMAP queue 1, item 7)"
-        )
+def _refuse_unsupported(cfg: DLSGConfig) -> None:
     if not dist.is_distributed() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise RuntimeError(
             "WORLD_SIZE > 1 but no process group: pass --distributed (or call "
@@ -113,7 +121,7 @@ class _TrainerBase:
     ):
         self.device = resolve_device(device)
         cfg = apply_dataset_overrides(cfg)
-        _refuse_unported(cfg)
+        _refuse_unsupported(cfg)
         if mesh is None:
             mesh = make_mesh(cfg.mesh_data_axis, cfg.mesh_model_axis)
         dist.set_mesh(mesh)
@@ -162,6 +170,30 @@ class _TrainerBase:
         (requires_grad=False in the reference, model.py:52-53)."""
         frozen = ("word_embed",) if self.cfg.freeze_word_embed else ()
         return make_optimizer(self.cfg.learning_rate, frozen_paths=frozen)
+
+    def _maybe_graft_glove(self, model) -> None:
+        """Replace the decoder's word embedding with GloVe vectors when
+        cfg.use_glove (layer.py:307-309,352-386). Only the leader reads the
+        file and writes its cache (no two ranks write one file); the others
+        get the rows from its broadcast (`_place_generator`)."""
+        cfg = self.cfg
+        if not cfg.use_glove or not self.is_leader:
+            return
+        matrix = load_glove_matrix(self.vocab, cfg.word_size, cfg.glove_path, cfg.glove_cache_npy_path)
+        model.load_state_dict(graft_word_embedding(model.state_dict(), matrix))
+        self._print(f"GloVe embedding grafted from {cfg.glove_path}")
+
+    def _place_generator(self) -> None:
+        """Every rank starts from rank 0's generator (equal already: the same
+        seed, or the same checkpoint), whole; then keeps its rows of the
+        vocab head and of their Adam moments."""
+        dist.broadcast_module(self.gen_model)
+        if not shard_train_state(self.gen_state, self.mesh) and self.mesh.n_model > 1:
+            self._print(
+                f"mesh_model_axis={self.mesh.n_model} does not divide the "
+                f"{self.gen_model.vocab_size}-word vocabulary: the vocab head stays "
+                "replicated (as in the JAX package)"
+            )
 
     def _slice_batch(self, batch):
         """Host-side trim before staging: regions to num_obj, captions to
@@ -243,6 +275,7 @@ class RunGAN(_TrainerBase):
         cfg = self.cfg
         V = len(vocab)
         self.gen_model = CapGnnModel(cfg, V, device=self.device)  # seeded with cfg.seed
+        self._maybe_graft_glove(self.gen_model)
         self.use_visual_gan = cfg.use_visual_gan
         self.gen_state = TrainState.create(self.gen_model, self._gen_optimizer())
         self.disc_model = self.disc_state = None
@@ -270,17 +303,9 @@ class RunGAN(_TrainerBase):
             if restored["gan_lambda_state"] is not None:
                 self.lambda_state = restored["gan_lambda_state"]
             self.last_epoch = restored["epoch"]
-        # every rank starts from rank 0's weights (they are equal already:
-        # the same seed, or the same checkpoint), whole
-        for model in (self.gen_model, self.disc_model):
-            if model is not None:
-                dist.broadcast_module(model)
-        # then keeps its rows of the vocab head and of its Adam moments
-        if not shard_train_state(self.gen_state, self.mesh) and self.mesh.n_model > 1:
-            self._print(
-                f"mesh_model_axis={self.mesh.n_model} does not divide the {V}-word "
-                "vocabulary: the vocab head stays replicated (as in the JAX package)"
-            )
+        if self.disc_model is not None:
+            dist.broadcast_module(self.disc_model)
+        self._place_generator()
 
     def _save_point(self, epoch: int, trigger: Optional[str]) -> None:
         """The best model (when the leader's `trigger` names its metric; the
@@ -417,3 +442,109 @@ class RunGAN(_TrainerBase):
     def _stop_trace(self) -> None:
         stop_trace(self._trace, self.cfg.profile_dir)
         self._trace = None
+
+
+class Run(_TrainerBase):
+    """CE-only baseline trainer over CapBaseline1 (run_graph.py:16-200). Runs
+    on `device`, default `cuda`; pass ``device="cpu"`` for the CPU. It
+    keeps no training checkpoint, so `resume_epoch` must be None."""
+
+    def __init__(self, cfg, vocab, train_dataset, eval_dataset, test_reference, **kw):
+        if kw.get("resume_epoch") is not None:
+            raise ValueError(
+                f"{type(self).__name__} keeps no training checkpoints (as run_graph.py and "
+                "run.py): only RunGAN resumes"
+            )
+        super().__init__(cfg, vocab, train_dataset, eval_dataset, test_reference, **kw)
+        cfg = self.cfg
+        self.gen_model = self._build_generator(len(vocab))  # seeded with cfg.seed
+        self.gen_state = TrainState.create(self.gen_model, self._optimizer())
+        self.ce_step = self._make_step()
+        # the reference scores the baselines through the same beam-sized
+        # evaluate() as the GAN trainer (run_graph.py:183, beam from opt.py:22)
+        self.decode_fn = make_decode_fn(self.gen_model, cfg, beam_size=cfg.beam_size,
+                                        device=self.device)
+        self._place_generator()
+
+    def _build_generator(self, vocab_size: int):
+        model = CapBaseline1(self.cfg, vocab_size, device=self.device)
+        self._maybe_graft_glove(model)
+        return model
+
+    def _optimizer(self):
+        return self._gen_optimizer()
+
+    def _make_step(self):
+        return make_ce_train_step(self.gen_model, self.cfg)
+
+    def train(self) -> ResultHandler:
+        """Train epochs 0 to `cfg.epoch_num`, inside a process group on this
+        rank's shard of every epoch."""
+        try:
+            return self._train_epochs()
+        finally:
+            self._close_loader()  # the worker pool, also when a step raises
+
+    def _train_epochs(self) -> ResultHandler:
+        cfg = self.cfg
+        steps = len(self.train_dataset) // cfg.train_batch_size // dist.data_size()  # RunGAN's rule
+        total_step = max(1, steps)
+        loss_count = 0.0
+        for epoch in range(self.last_epoch + 1, cfg.epoch_num):
+            start = time.time()
+            lr = multistep_lr(cfg.learning_rate, G_LR_MILESTONES, LR_GAMMA, epoch)
+            self.gen_state.set_learning_rate(lr)
+            self._print(f"Epoch-{epoch} lr: {lr}")
+            epsilon = scheduled_sampling_epsilon(cfg.ss_factor, epoch)
+            schedule = saving_schedule(epoch, total_step, cfg.dataset)
+
+            # RunGAN's one-step-lagged metric consumption
+            def _consume(p):
+                nonlocal loss_count
+                i, metrics = p
+                cap_loss = float(metrics["cap_loss"])  # host sync
+                loss_count += cap_loss
+                self.writer.add_scalar("Loss/cap_loss", cap_loss, i + epoch * total_step)
+                if i % cfg.log_every == 0:
+                    n = float(cfg.log_every)
+                    self._print(
+                        f"Epoch [{epoch}/{cfg.epoch_num}], Step [{i}/{total_step}], "
+                        f"Loss: {loss_count / n:.4f}, Perplexity: {np.exp(loss_count / n):.4f}"
+                    )
+                    loss_count = 0.0
+
+            pending = None
+            batches = self._batches(epoch, steps)
+            try:
+                for i, batch in enumerate(batches, start=1):
+                    with self.stopwatch.span("train_step"):
+                        self.gen_state, metrics = self.ce_step(self.gen_state, batch, cfg.seed, epsilon)
+                        if pending is not None:
+                            _consume(pending)  # syncs on step i-1 while i runs
+                    pending = (i, metrics)
+                    if i in schedule:
+                        _consume(pending)
+                        pending = None
+                        self._run_eval(epoch, i + epoch * total_step)
+            finally:
+                batches.close()
+            if pending is not None:
+                _consume(pending)
+            self.result_handler.print_results()
+            self._print(f"*******One epoch time: {time.time() - start:.3f}s*******\n")
+        return self.result_handler
+
+
+class RunLegacy(Run):
+    """Frames-only legacy trainer over CapModel (reference run.py:16-128):
+    Run's schedule with CapModel's own step, and an optimizer that freezes
+    nothing; no GloVe."""
+
+    def _build_generator(self, vocab_size: int):
+        return CapModel(self.cfg, vocab_size, device=self.device)
+
+    def _optimizer(self):
+        return make_optimizer(self.cfg.learning_rate)
+
+    def _make_step(self):
+        return make_legacy_ce_train_step(self.gen_model, self.cfg)

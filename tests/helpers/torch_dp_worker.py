@@ -15,6 +15,15 @@ Imports dlsg_tpu_torch only (no jax, no dlsg_tpu). Jobs:
   gradient of PSLScore2's sum, the cap loss fed to lambda); one CE step;
   and a dropout draw;
 - gan: the first of those GAN steps alone (run at world size 1);
+- gan_f64: the GAN step of each case on the whole batch in float64, with
+  no process group (`float64_torch` below);
+- glove: Run built with `use_glove` from IN_DIR/glove.txt (no step): its
+  word embedding (tests/test_torch_glove.py);
+- baseline_ce: one CE step of CapBaselineModel from IN_DIR/weights.pt on
+  this rank's rows of IN_DIR/batch.npz, dropout off, every word gold
+  (tests/test_torch_baselines_trainer.py);
+- run: the CE baseline trainer Run for one synthetic epoch of 16 captions,
+  2 rows a rank, at RUN_CFG (tests/test_torch_baselines_trainer.py);
 - trainer: RunGAN for one synthetic epoch (a train set not divisible by
   world x batch), then resumed from rank 0's epoch_0 checkpoint for one
   more; and evaluate() with the gather over a 5-clip and a 1-clip eval set.
@@ -35,6 +44,15 @@ import torch
 V = 40
 KEY = 2
 LR = 1e-4
+# the run job's config: dropout off (with the hard-coded rates, patched),
+# every scheduled-sampling coin gold (epsilon 1 - 1e-9 = 1.0 in fp32), and
+# lr 1e-7, so that the 4 Adam updates keep the parameters near their start
+# and the first moments compare the gradients (as
+# tests/test_torch_trainer_ce_epoch.py does): at the trainer's 1.6e-4 a
+# first update is +-lr on elements whose gradient sits at rounding level,
+# and the later steps carry that into the moments
+RUN_CFG = dict(dropout=0.0, ss_factor=10**9, learning_rate=1e-7, epoch_num=1,
+               test_batch_size=4, beam_size=2)
 
 
 @contextlib.contextmanager
@@ -51,6 +69,63 @@ def patched(*patches):
 
 def _np(t):
     return t.detach().clone()
+
+
+def float64_torch() -> None:
+    """Make the port compute in float64: the default dtype, every
+    `torch.float32` the package names (read when it is imported, so this
+    runs first) and `Tensor.float()`. The package casts to fp32 at many
+    sites (flax's fp32 statistics and outputs), and each of them becomes a
+    float64 cast."""
+    torch.set_default_dtype(torch.float64)
+    torch.float32 = torch.float = torch.float64
+    torch.Tensor.float = lambda self, *args, **kw: self.double()
+
+
+def f64_job(in_dir: str) -> dict:
+    """The steps job's GAN step of each case on the whole batch, with no
+    process group, in float64 (the weights, features and penalty weights
+    are the fp32 ones, widened)."""
+    # read while torch.load still knows its fp32 storage type
+    weights = torch.load(os.path.join(in_dir, "weights.pt"), weights_only=True)
+    saved = torch.float32, torch.float, torch.Tensor.float
+    float64_torch()  # before the package is imported
+    try:
+        return _f64_steps(in_dir, weights)
+    finally:
+        torch.float32, torch.float, torch.Tensor.float = saved  # torch.save needs them
+
+
+def _f64_steps(in_dir: str, weights: dict) -> dict:
+    from dlsg_tpu_torch.config import tiny_test_config
+    from dlsg_tpu_torch.models.discriminator import DiscV2
+    from dlsg_tpu_torch.models.generator import CapGnnModel
+    from dlsg_tpu_torch.ops import linear
+    from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
+    from dlsg_tpu_torch.train.optim import TrainState, make_optimizer
+    from dlsg_tpu_torch.train.steps import make_gan_train_step
+
+    cfg = tiny_test_config(dropout=0.0)
+    assert cfg.cdtype == torch.float64
+    data = np.load(os.path.join(in_dir, "batches.npz"))
+    out = {}
+    for case in ("even", "uneven"):
+        batch = {k: data[f"{case}_{k}"] for k in ("frames", "regions", "captions", "lengths")}
+        for k in ("frames", "regions"):
+            batch[k] = batch[k].astype(np.float64)
+        g, d = CapGnnModel(cfg, V, device="cpu"), DiscV2(cfg, V, device="cpu")
+        g.load_state_dict(weights["gen"])
+        d.load_state_dict(weights["disc"])
+        gs = TrainState.create(g, make_optimizer(LR))
+        ds = TrainState.create(d, make_optimizer(LR))
+        with patched((linear, "dropout", lambda x, rate, rng: x)):
+            gs, ds, _, _ = make_gan_train_step(g, d, cfg)(
+                gs, ds, init_lambda_state(0.01, device="cpu"), batch, KEY, 1.0,
+                eps_gp=torch.from_numpy(data[f"{case}_eps_gp"].astype(np.float64)),
+            )
+        out[f"gan_{case}"] = {"g_mu": gs.first_moments(), "d_mu": ds.first_moments()}
+        assert all(t.dtype == torch.float64 for t in out[f"gan_{case}"]["d_mu"].values())
+    return out
 
 
 def steps_job(in_dir: str, only_gan: bool = False) -> dict:
@@ -200,24 +275,99 @@ def trainer_job(in_dir: str) -> dict:
     return out
 
 
-def main() -> None:
-    job, in_dir, out_file = sys.argv[1:4]
-    torch.set_num_threads(1)
+def run_job(in_dir: str) -> dict:
+    from dlsg_tpu_torch.config import tiny_test_config
+    from dlsg_tpu_torch.data.synthetic import SyntheticDataset, make_vocab
+    from dlsg_tpu_torch.ops import linear
+    from dlsg_tpu_torch.parallel import dist
+    from dlsg_tpu_torch.train.trainer import Run
+
+    cfg = tiny_test_config(train_batch_size=2, result_dir=os.path.join(in_dir, f"run_rank{dist.rank()}"),
+                           **RUN_CFG)
+    vocab = make_vocab()
+    ds = SyntheticDataset(cfg, vocab, num_videos=8, captions_per_video=2)
+    with patched((linear, "dropout", lambda x, rate, rng: x)):
+        run = Run(cfg, vocab, ds, ds.eval_view(), ds.references, device="cpu")
+        trained, scores = [], []
+        slice_batch, run_eval = run._slice_batch, run._run_eval
+
+        def record(batch):
+            trained.extend(int(v) for v in batch["video_ids"])
+            return slice_batch(batch)
+
+        def record_eval(*args):
+            out = run_eval(*args)
+            scores.append(out[0])
+            return out
+
+        run._slice_batch, run._run_eval = record, record_eval
+        run.train()
+    return {"g_mu": run.gen_state.first_moments(), "g_params": run.gen_model.state_dict(),
+            "step": run.gen_state.step, "scores": scores[-1], "trained": trained}
+
+
+def glove_job(in_dir: str) -> dict:
+    from dlsg_tpu_torch.config import tiny_test_config
+    from dlsg_tpu_torch.data.synthetic import SyntheticDataset, make_vocab
+    from dlsg_tpu_torch.models.glove import WORD_EMBED_KEY
+    from dlsg_tpu_torch.train.trainer import Run
+
+    cfg = tiny_test_config(use_glove=True, glove_txt_path=os.path.join(in_dir, "glove.txt"),
+                           data_dir=in_dir, result_dir=os.path.join(in_dir, "results"))
+    vocab = make_vocab()
+    ds = SyntheticDataset(cfg, vocab, num_videos=2, captions_per_video=1)
+    run = Run(cfg, vocab, ds, ds.eval_view(), ds.references, device="cpu")
+    return {"embedding": run.gen_model.state_dict()[WORD_EMBED_KEY].clone()}
+
+
+def baseline_ce_job(in_dir: str) -> dict:
+    from dlsg_tpu_torch.config import tiny_test_config
+    from dlsg_tpu_torch.models import CapBaselineModel
+    from dlsg_tpu_torch.ops import linear
+    from dlsg_tpu_torch.parallel import dist
+    from dlsg_tpu_torch.train.optim import TrainState, make_optimizer
+    from dlsg_tpu_torch.train.steps import make_ce_train_step
+
+    cfg = tiny_test_config(dropout=0.0)
+    data = np.load(os.path.join(in_dir, "batch.npz"))
+    b = data["captions"].shape[0] // dist.world_size()
+    rows = slice(dist.rank() * b, (dist.rank() + 1) * b)
+    model = CapBaselineModel(cfg, V, device="cpu")
+    model.load_state_dict(torch.load(os.path.join(in_dir, "weights.pt"), weights_only=True))
+    state = TrainState.create(model, make_optimizer(LR))
+    with patched((linear, "dropout", lambda x, rate, rng: x)):
+        state, m = make_ce_train_step(model, cfg)(state, {k: data[k][rows] for k in data.files}, KEY, 1.0)
+    return {"g_mu": state.first_moments(), "g_params": model.state_dict(),
+            "metrics": {k: _np(v) for k, v in m.items()}}
+
+
+def distributed_job(job: str, in_dir: str) -> dict:
     from dlsg_tpu_torch.parallel import dist
 
     if "RANK" in os.environ:
         dist.init_distributed("cpu", timeout=datetime.timedelta(seconds=60))
     try:
         if job == "trainer":
-            result = trainer_job(in_dir)
-        else:
-            result = steps_job(in_dir, only_gan=job == "gan")
-        mods = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "flax", "dlsg_tpu"))
-        result["foreign_modules"] = mods
-        torch.save(result, out_file)
+            return trainer_job(in_dir)
+        if job == "run":
+            return run_job(in_dir)
+        if job == "glove":
+            return glove_job(in_dir)
+        if job == "baseline_ce":
+            return baseline_ce_job(in_dir)
+        return steps_job(in_dir, only_gan=job == "gan")
     finally:
         if dist.is_distributed():
             torch.distributed.destroy_process_group()
+
+
+def main() -> None:
+    job, in_dir, out_file = sys.argv[1:4]
+    torch.set_num_threads(1)
+    result = f64_job(in_dir) if job == "gan_f64" else distributed_job(job, in_dir)
+    result["foreign_modules"] = sorted(
+        n for n in sys.modules if n.split(".")[0] in ("jax", "flax", "dlsg_tpu"))
+    torch.save(result, out_file)
     print("WORKER OK", flush=True)
 
 

@@ -2,8 +2,8 @@
 reference's on-disk layout then `--resume`, `evaluate --metric`, `export`
 then `serve --bundle --features`, `serve` of the eval split and
 `evaluate` of a reference `.pt` (`--torch_checkpoint`), `serve --listen`,
-the flags of `parse_opt` against dlsg_tpu's, and the guards and the
-commands that are not ported."""
+the flags of `parse_opt` against dlsg_tpu's, and the guards (the baseline
+trainers' commands are in test_torch_baselines_trainer.py)."""
 
 import dataclasses
 import json
@@ -97,15 +97,17 @@ def test_parse_opt_matches_jax(argv):
 
 
 def test_unported_commands_and_guards_exit_2(tmp_path, capsys):
-    """`train-base`/`train-legacy` exit 2 naming their ROADMAP item; `serve`
-    and `export` without a model (no --metric, --torch_checkpoint or
-    --allow_random_params), `serve --bundle` without clips or --listen, and
-    a --torch_checkpoint that does not exist exit 2 before reading data."""
+    """`train-base`/`train-legacy` with --resume exit 2 (the baseline
+    trainers keep no training checkpoints); `serve` and `export` without a
+    model (no --metric, --torch_checkpoint or --allow_random_params),
+    `serve --bundle` without clips or --listen, and a --torch_checkpoint
+    that does not exist exit 2 before reading data."""
     for command in ("train-base", "train-legacy", "serve", "export"):
-        assert main([command, "--synthetic"]) == 2
+        resume = ["--resume"] if command.startswith("train") else []
+        assert main([command, "--synthetic"] + resume) == 2
         err = capsys.readouterr().err
         if command.startswith("train"):
-            assert "ROADMAP queue 1, item 7" in err
+            assert "is only supported by `train`" in err
         else:
             assert "--allow_random_params" in err
     assert main(["evaluate", "--synthetic", "--torch_checkpoint", "x.pt", "--device", "cpu"]) == 2

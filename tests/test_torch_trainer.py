@@ -207,7 +207,6 @@ def test_one_gan_epoch_writes_everything_and_serves_its_best_model(tmp_path):
 
 def test_unported_options_raise(tmp_path):
     for kw, match in (
-        (dict(use_glove=True), "item 7"),
         (dict(mesh_data_axis=2), "= 2 ranks, but the world size is 1"),
         # the model axis needs a process group: no quiet replicated run
         (dict(mesh_model_axis=2), r"mesh_model_axis=2 does not divide the world size 1 \(no process group"),

@@ -188,13 +188,11 @@ def test_jsonable_id_matches_jax():
 
 # JAX exports with no counterpart of the same name: the XLA placement
 # helpers (the port's collectives are explicit: parallel/mesh.py has no
-# arrays to place), ParallelBatcher (the port's worker pool is
-# data/parallel_loader.py::WorkerPool) and the baseline generators
-# (ROADMAP queue 1, item 7a)
+# arrays to place) and ParallelBatcher (the port's worker pool is
+# data/parallel_loader.py::WorkerPool)
 NOT_EXPORTED = {
     "parallel": {"batch_sharding", "replicated", "shard_batch"},
     "data": {"ParallelBatcher"},
-    "models": {"CapModel", "CapBaselineModel", "CapBaseline1"},
 }
 
 
