@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive dlsg_tpu_torch's beam-5 serving path (the Captioner, the two-pass
-decode, the HTTP server, `cli serve`/`export`), its GAN train step, its
-trainer, its baseline generators and their CE trainers, its C++ scorer, its
-data parallelism and its model axis on one NVIDIA GPU.
+decode, the HTTP server, the int8 decode, `cli serve`/`export`), the
+evidence that its training learns, its GAN train step, its trainer, its
+baseline generators and their CE trainers, its C++ scorer, its data
+parallelism and its model axis on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,15 +15,21 @@ line per phase:
 1. device: the card's name, count and nvidia-smi power limit;
 2. build: seconds to build every kernel (one nvcc per source, in parallel,
    with g++ building the scorer library beside them), ptxas's registers per
-   kernel, and the tensor-core (HMMA) instructions `cuobjdump` finds in each
-   library;
+   kernel, and the tensor-core instructions `cuobjdump` finds in each
+   library (HMMA for the float products, IMMA for qmatmul's s8 products,
+   which must be there);
 3. kernel checks: each kernel against its plain PyTorch version at the
    shapes the serving path gives it (MSR-VTT widths, batch 128, beam 5); the
    vocab head once per tile form, bf16 w (bf16 tensor-core tiles, the
    serving path) and fp32 w (TF32x3 tiles: three TF32 products of a hi/lo
    split), the fp32 form's top-k logits also held within max(3 x the plain
    fp32 product's error, 2e-6) of a float64 product, which one TF32 pass
-   fails;
+   fails; qmatmul (the int8 product) at the int8 decode's three products
+   (the quantized Wq 2860 x 4096, Wl 4608 x 6144 and Wv 1536 x 10000 of the
+   serving weights) at G = 128 and 640 rows, bitwise its plain version,
+   with its library yardstick (row quantize + torch._int_mm + rescale,
+   which must also be bitwise equal) and a bf16 torch.mm of each shape, and
+   each one's device time without host time (torch.profiler);
 4. serving: a Captioner at MSR-VTT widths (bf16 compute, both kernel
    switches on, 10 000-word vocabulary, seeded random weights) warms every
    bucket and answers beam-5 requests of 3, 50 and 128 clips and one greedy
@@ -54,6 +61,26 @@ line per phase:
    same arrays, both kernels launched for each beam request; a malformed
    body gets a 400, /healthz names the card, /metrics counts it all; then
    the request's latency against caption() alone;
+4d. int8: the serving config with decode_quant="int8" and the serving
+   weights, 128 clips: the main path is the beam-5 decode with the fused
+   head on (K2 twice, then qmatmul twice and K1 a beam step) and off
+   (qmatmul three times a step), and the two-pass decode of a copy whose
+   <end> bias finishes 25-75% of the rows within t1 = 8, with the launch
+   counts checked per decode. Then: tokens bitwise the same decodes' with
+   qmatmul alone swapped for its plain version; with every kernel swapped,
+   the serving phase's perturbation rule; the two-pass decode's pass-1 rows
+   bitwise the single pass's; the first beam step's logits correlated >
+   0.999 with the unquantized bf16 step's; the int8 and bf16 decode ms
+   (fused head on) in turns, the fused-off int8 decode's ms, and a profile;
+4e. learning (`dlsg_tpu_torch/train/learning.py`, the JAX package's
+   tests/test_learning.py and tests/test_convergence.py at their dims and
+   step counts, from this package's seeded init): the GAN fit at fp32 and
+   bf16 (CE halves, Bleu_1 > max(0.5, before + 0.3), CIDEr + 0.5), the
+   held-out CE generalization with the trained model's int8 decode through
+   qmatmul (Bleu_1 within 0.1 and CIDEr within 0.5 of the unquantized
+   decode's), and the GAN dynamics (mean Wasserstein tail > max(5, 2 x
+   head), 0.01 < penalty tail < 5) with the CE ablation; then the trained
+   decodes' mean caption length and their C++ and Python scoring seconds;
 5. train: the WGAN-GP train step of CapGnnModel + DiscV2 at MSR-VTT widths
    (bf16 compute, the plain LSTM recurrence under autograd as in the JAX
    train config, 10 000 words, batch 128, seeded random weights): one
@@ -163,9 +190,10 @@ line per phase:
    following, which must answer caption()'s captions and stop the
    follower;
 7. the `kernels` line (times, bounds, launches on each path: serving,
-   two_pass, server, trainer, baselines, cli_serve, data_parallel,
-   model_axis; K2 and K1's tensor-core form must launch on the baselines
-   path), the nvidia-smi line, and as the last line
+   two_pass, server, int8, learning, trainer, baselines, cli_serve,
+   data_parallel, model_axis; K2 and K1's tensor-core form must launch on
+   the baselines path, qmatmul on the int8 and learning paths), the
+   nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -208,6 +236,8 @@ from dlsg_tpu_torch.evaluation import decode as decode_mod  # noqa: E402
 from dlsg_tpu_torch.evaluation.decode import make_decode_fn  # noqa: E402
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain  # noqa: E402
+from dlsg_tpu_torch.kernels.qmatmul import LIBRARY as QMM_LIB  # noqa: E402
+from dlsg_tpu_torch.kernels.breakdown import int_mm_library  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import ROUTE_LAUNCHES  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_plan, vocab_head_topk  # noqa: E402
@@ -223,22 +253,26 @@ from dlsg_tpu_torch.models.generator import (  # noqa: E402
 from dlsg_tpu_torch.models.glove import WORD_EMBED_KEY  # noqa: E402
 from dlsg_tpu_torch.ops import linear as linear_mod  # noqa: E402
 from dlsg_tpu_torch.ops import lstm as lstm_mod  # noqa: E402
+from dlsg_tpu_torch.ops import quant as quant_mod  # noqa: E402
 from dlsg_tpu_torch.ops.linear import matmul_f32  # noqa: E402
+from dlsg_tpu_torch.ops.quant import qmatmul, qmatmul_plain  # noqa: E402
 from dlsg_tpu_torch.parallel import mesh_timing  # noqa: E402
 from dlsg_tpu_torch.serve import Captioner, jsonable_id  # noqa: E402
 from dlsg_tpu_torch.server import CaptionServer  # noqa: E402
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state  # noqa: E402
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer  # noqa: E402
+from dlsg_tpu_torch.train import learning  # noqa: E402
 from dlsg_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from dlsg_tpu_torch.train.steps import (  # noqa: E402
     make_ce_train_step, make_gan_train_step, make_legacy_ce_train_step,
 )
-from dlsg_tpu_torch.vocab import END_ID, Vocabulary  # noqa: E402
+from dlsg_tpu_torch.vocab import END_ID, START_ID, Vocabulary  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 VOCAB = 10000
@@ -394,14 +428,16 @@ def phase_device() -> dict:
     return info
 
 
-def sass_mma_count(path) -> int:
-    """Tensor-core instructions (HMMA) in a built library's machine code."""
+def sass_mma_count(path) -> dict:
+    """Tensor-core instructions in a built library's machine code: HMMA
+    (floating-point operands) and IMMA (integer operands, qmatmul's s8)."""
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     out = subprocess.run(
         [str(Path(cuda_home) / "bin" / "cuobjdump"), "-sass", str(path)],
         capture_output=True, text=True, timeout=120, check=True,
     )
-    return sum("HMMA" in ln for ln in out.stdout.splitlines())
+    lines = out.stdout.splitlines()
+    return {op: sum(op in ln for ln in lines) for op in ("HMMA", "IMMA")}
 
 
 def phase_build() -> float:
@@ -431,9 +467,9 @@ def phase_build() -> float:
         for lib in kernels.LIBRARIES
     }
     mma = {lib.name: sass_mma_count(lib.path()) for lib in kernels.LIBRARIES}
-    if not all(mma.values()):
+    if not all(sum(n.values()) for n in mma.values()) or not mma[QMM_LIB.name]["IMMA"]:
         raise AssertionError(f"a kernel library has no tensor-core instruction: {mma}")
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "sass_hmma": mma,
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "sass_mma": mma,
           "scorer_library_s": native_build["s"], "scorer_library": native.library_path().name})
     return native_build["s"]
 
@@ -545,22 +581,25 @@ def features(n: int, cfg: DLSGConfig, seed: int):
     return frames, regions
 
 
-def decode_plain(decode, frames, regions, lstm: bool = True, vocab: bool = True):
-    """`decode` with the model's kernel call sites (both by default) routed to
+def decode_plain(decode, frames, regions, lstm: bool = True, vocab: bool = True,
+                 qmm: bool = True):
+    """`decode` with the model's kernel call sites (all by default) routed to
     the plain versions: the reference decode. Checks that the swapped
     kernels did not launch."""
-    swapped = [lib for lib, on in ((LSTM_LIB, lstm), (VOCAB_LIB, vocab)) if on]
+    swapped = [lib for lib, on in ((LSTM_LIB, lstm), (VOCAB_LIB, vocab), (QMM_LIB, qmm)) if on]
     before = [lib.launches for lib in swapped]
-    saved = (lstm_mod.lstm_scan, decode_mod.vocab_head_topk)
+    saved = (lstm_mod.lstm_scan, decode_mod.vocab_head_topk, quant_mod.qmatmul)
     if lstm:
         lstm_mod.lstm_scan = lstm_scan_plain
     if vocab:
         decode_mod.vocab_head_topk = vocab_head_topk_plain
+    if qmm:
+        quant_mod.qmatmul = qmatmul_plain
     try:
         ids = decode(frames, regions)
         torch.cuda.synchronize()
     finally:
-        lstm_mod.lstm_scan, decode_mod.vocab_head_topk = saved
+        lstm_mod.lstm_scan, decode_mod.vocab_head_topk, quant_mod.qmatmul = saved
     if [lib.launches for lib in swapped] != before:
         raise AssertionError("the plain reference decode launched a kernel")
     return ids
@@ -1577,6 +1616,234 @@ def phase_server(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
 def phase_scorer(references: dict, captions: dict, build_s: float) -> dict:
     """The trainer phase's 26-word captions scored through the C++ tokenizer
     and aligner and through the Python ones: the seven scores must be equal."""
+    cpp, cpp_s, py_s = time_scorers(references, captions)
+    result = {"phase": "scorer", "captions": len(captions),
+              "words_per_caption": len(next(iter(captions.values())).split()),
+              "cpp_s": cpp_s, "python_s": py_s, "python_over_cpp": py_s / cpp_s,
+              "library_build_s": build_s, "library": native.library_path().name, "scores": cpp}
+    emit(result)
+    return result
+
+
+# --------------------------------------------------------------- int8 decode
+
+# the int8 phase's share of rows finished within TWO_PASS_T1 for its two-pass
+# decode (the two_pass phase's "mixed" regime)
+INT8_TWO_PASS_WINDOW = (0.25, 0.75)
+# the first beam step's logits, int8 against unquantized (tests/test_quant.py)
+INT8_CORR_MIN = 0.999
+
+
+def int8_model(cfg: DLSGConfig, params: dict):
+    """(config with decode_quant='int8', CapGnnModel of it with `params`)."""
+    qcfg = replace(cfg, decode_quant="int8")
+    model = CapGnnModel(qcfg, VOCAB, device=DEVICE)
+    model.load_state_dict(params)
+    return qcfg, model
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device milliseconds of one `fn` call without its host time: the
+    kernel time torch.profiler records over n back-to-back calls (L2 warm),
+    over n."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    return total_us / 1e3 / n
+
+
+def check_qmatmul(cfg: DLSGConfig, params: dict) -> dict:
+    """qmatmul at the int8 decode's three products (the quantized Wq, Wl and
+    Wv of the serving weights, from the decode's own precompute) and both
+    row counts (B = 128 on the first beam step, B x beam = 640 after), x =
+    tanh(N(0, 1)) like the decoder's states: bitwise its plain version. The
+    kernels-line numbers are one beam step's three products at G = 640,
+    summed; `per_call` has each call, with a bf16 torch.mm of the same shape
+    (unquantized weights, fp32 output) beside the library's int8 product,
+    and the device time of each of the three without host time
+    (`device_ms`)."""
+    qcfg, model = int8_model(cfg, params)
+    fr, rg = (torch.from_numpy(a).to(DEVICE) for a in features(BATCH, cfg, seed=SEED + 3))
+    with torch.inference_mode():
+        _, pre = model.decoder_init_beam_state(*model.encode(fr, rg))
+        step = model.decoder.step
+        bf16 = {"Wq": step.query_lstm.fused_weights()[0], "Wl": step.lang_lstm.fused_weights()[0],
+                "Wv": step.word_restore.kernel(torch.bfloat16)}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    shapes, err, library_equal = [], 0.0, True
+    for name in ("Wq", "Wl", "Wv"):
+        w = pre[name]
+        N, Kp = w.qt.shape
+        K = bf16[name].shape[0]
+        for G in (BATCH, BATCH * BEAM):
+            x = torch.tanh(torch.randn(G, K, generator=g, device=DEVICE))
+            got = qmatmul(x, *w)
+            torch.cuda.synchronize()
+            want = qmatmul_plain(x, *w)
+            err = max(err, float((got - want).abs().max()))
+            library_equal &= bool(torch.equal(int_mm_library(x, w), got))
+            xb, wb = x.to(torch.bfloat16), bf16[name].to(torch.bfloat16)
+            ops = 2.0 * G * K * N
+            nbytes = G * K * 4 + N * Kp + N * 4 + G * N * 4
+            bms, by = bound_ms(ops, PEAK_INT8, nbytes)
+            shapes.append({
+                "weight": name, "G": G, "K": K, "N": N, "Kp": Kp,
+                "ms": time_ms(lambda: qmatmul(x, *w)),
+                "plain_ms": time_ms(lambda: qmatmul_plain(x, *w)),
+                "library_ms": time_ms(lambda: int_mm_library(x, w)),
+                "bf16_mm_ms": time_ms(lambda: torch.mm(xb, wb, out_dtype=torch.float32)),
+                "device_ms": device_ms(lambda: qmatmul(x, *w)),
+                "library_device_ms": device_ms(lambda: int_mm_library(x, w)),
+                "bf16_mm_device_ms": device_ms(lambda: torch.mm(xb, wb, out_dtype=torch.float32)),
+                "bound_ms": bms, "bound_by": by,
+            })
+    if err != 0.0:
+        raise AssertionError(f"qmatmul differs from its plain version: max-abs {err}, want 0")
+    step640 = [s for s in shapes if s["G"] == BATCH * BEAM]
+    # the kind that bounds the calls holding most of the summed bound
+    by_ms = {by: sum(s["bound_ms"] for s in step640 if s["bound_by"] == by)
+             for by in ("bytes", "operations")}
+    return {
+        "name": "qmatmul", "route": "cuda", "source": "dlsg_tpu_torch/csrc/qmatmul.cu",
+        "replaces": "dlsg_tpu/ops/quant.py:35",
+        "shapes": "one int8 beam step's Wq, Wl and Wv products at G = 640, summed; per call in "
+                  "`per_call`",
+        "design": "row-quantize launch, then 128 x 128 tiles of mma.sync m16n8k32 s8 on a "
+                  "4-stage cp.async ring of K-major int8 tiles",
+        "max_abs_err": err, "tolerance": 0.0, "library_equal_bitwise": library_equal,
+        **{k: sum(s[k] for s in step640) for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                   "bf16_mm_ms", "device_ms", "library_device_ms",
+                                                   "bf16_mm_device_ms")},
+        "bound_by": max(by_ms, key=by_ms.get), "per_call": shapes,
+    }
+
+
+def first_step_logits(model, fr, rg) -> torch.Tensor:
+    """Raw logits [B, V] of the first beam step from <start>."""
+    with torch.inference_mode():
+        state, pre = model.decoder_init_beam_state(*model.encode(fr, rg))
+        start = torch.full((fr.shape[0],), START_ID, dtype=torch.int64, device=fr.device)
+        return model.decoder_beam_step(start, state, pre)[0]
+
+
+def phase_int8(cfg: DLSGConfig, params: dict) -> dict:
+    """The int8 decode (decode_quant='int8') at the serving config. The main
+    path, counted: the beam-5 decode of 128 clips with the fused head on (K2
+    twice, then qmatmul twice and K1 a beam step) and off (qmatmul three
+    times a step), and the two-pass decode of a copy whose <end> bias
+    finishes 25-75% of the rows within t1. Then, uncounted: tokens bitwise
+    the decode's with qmatmul alone swapped for its plain version; with
+    every kernel swapped, held to the serving phase's perturbation rule;
+    the two-pass decode's pass-1 rows bitwise the single pass's; the first
+    beam step's logits correlated > INT8_CORR_MIN with the unquantized
+    step's; the int8 and bf16 decode ms (fused head on) in turns."""
+    qcfg, model = int8_model(cfg, params)
+    _, model_tp = int8_model(cfg, params)
+    on = make_decode_fn(model, qcfg, beam_size=BEAM, device=DEVICE)
+    off = make_decode_fn(model, replace(qcfg, use_fused_vocab_head="off"), beam_size=BEAM,
+                         device=DEVICE)
+    tp_cfg = replace(qcfg, decode_two_pass_t1=TWO_PASS_T1)
+    single_tp = make_decode_fn(model_tp, qcfg, beam_size=BEAM, device=DEVICE)
+    two_tp = make_decode_fn(model_tp, tp_cfg, beam_size=BEAM, device=DEVICE)
+    fr, rg = (torch.from_numpy(a).to(DEVICE) for a in features(BATCH, cfg, seed=SEED + 12))
+    noise = torch.randn(fr.shape, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                        device=DEVICE)
+    base = float(model_tp.get_parameter("decoder.step.word_restore.bias").detach()[END_ID])
+    with uncounted():
+        end_bias, _ = search_end_bias(model_tp, qcfg, fr, rg, base, *INT8_TWO_PASS_WINDOW)
+
+    # ---- the main path, every launch count read over it ----
+    reset_launches()
+    ids_on = on(fr, rg)
+    torch.cuda.synchronize()
+    n_on = read_launches()
+    ids_off = off(fr, rg)
+    torch.cuda.synchronize()
+    n_off = {k: n - n_on[k] for k, n in read_launches().items()}
+    before = read_launches()
+    ids_two = two_tp(fr, rg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_two = {k: n - before[k] for k, n in launches.items()}
+
+    steps_on = n_on["vocab_head"]
+    if n_on["lstm_scan"] != 2 or not 1 <= steps_on <= cfg.max_words or \
+            n_on["qmatmul"] != 2 * steps_on or n_on["vocab_head[tensor_cores]"] != steps_on:
+        raise AssertionError(f"int8 decode, fused head on: launches {n_on}")
+    if n_off["lstm_scan"] != 2 or n_off["vocab_head"] != 0 or n_off["qmatmul"] % 3 or \
+            not 3 <= n_off["qmatmul"] <= 3 * cfg.max_words:
+        raise AssertionError(f"int8 decode, fused head off: launches {n_off}")
+    if n_two["lstm_scan"] != 2 or not 1 <= n_two["vocab_head"] or \
+            n_two["qmatmul"] != 2 * n_two["vocab_head"]:
+        raise AssertionError(f"int8 two-pass decode: launches {n_two}")
+    for ids in (ids_on, ids_off, ids_two):
+        if ids.shape != (BATCH, cfg.max_words) or not bool(((ids >= 0) & (ids < VOCAB)).all()):
+            raise AssertionError("the int8 decode gave ids out of range")
+
+    with uncounted():
+        # qmatmul alone swapped: the product is bitwise its plain version's
+        same = {head: bool(torch.equal(ids, decode_plain(fn, fr, rg, lstm=False, vocab=False)))
+                for head, fn, ids in (("on", on, ids_on), ("off", off, ids_off))}
+        if not all(same.values()):
+            raise AssertionError(f"int8 tokens differ with qmatmul's plain version: {same}")
+        plain = decode_plain(on, fr, rg)
+        agree = agreement(ids_on, plain)
+        floor = agreement(plain, decode_plain(on, fr * (1 + 1e-6 * noise), rg))
+        if agree < floor - BF16_FLOOR_MARGIN:
+            raise AssertionError(f"int8 token agreement with the plain versions {agree} is "
+                                 f"below the perturbation floor {floor} - {BF16_FLOOR_MARGIN}")
+        fin = finished_after(model_tp, qcfg, fr, rg, TWO_PASS_T1)
+        ids_single = single_tp(fr, rg)
+        if not bool(fin.any()) or not torch.equal(ids_two[fin], ids_single[fin]):
+            raise AssertionError("int8 two-pass: the rows pass 1 finished differ from the single pass")
+        model_bf = CapGnnModel(cfg, VOCAB, device=DEVICE)
+        model_bf.load_state_dict(params)
+        lq, lf = first_step_logits(model, fr, rg), first_step_logits(model_bf, fr, rg)
+        corr = float(torch.corrcoef(torch.stack([lq.flatten(), lf.flatten()]))[0, 1])
+        if not corr > INT8_CORR_MIN:
+            raise AssertionError(f"first beam step: int8 logits correlate {corr} with bf16's")
+        bf16 = make_decode_fn(model_bf, cfg, beam_size=BEAM, device=DEVICE)
+        agree_bf16 = agreement(ids_on, bf16(fr, rg))
+        ms = {"bf16": [], "int8": []}
+        for which in ("bf16", "int8", "int8", "bf16"):
+            fn = on if which == "int8" else bf16
+            ms[which].append(time_ms(lambda: fn(fr, rg), repeats=5, warmup=1, flush=False))
+        off_ms = time_ms(lambda: off(fr, rg), repeats=5, warmup=1, flush=False)
+        profile = device_profile(lambda: on(fr, rg), float(np.median(ms["int8"])))
+    result = {
+        "phase": "int8", "config": "msr-vtt, bf16, use_pallas_lstm, fused vocab head, decode_quant int8",
+        "vocab": VOCAB, "batch": BATCH, "beam": BEAM, "launches_fused_on": n_on,
+        "launches_fused_off": n_off, "launches_two_pass": n_two, "beam_steps": steps_on,
+        "tokens_equal_qmatmul_plain": same, "token_agreement_vs_plain": agree,
+        "plain_self_agreement_input_1e-6": floor, "token_agreement_vs_bf16_decode": agree_bf16,
+        "first_step_logit_corr_vs_bf16": corr,
+        "two_pass": {"t1": TWO_PASS_T1, "end_bias_added": end_bias,
+                     "finished_share_after_t1": float(fin.float().mean()),
+                     "pass1_rows_equal_single": True},
+        "decode_ms_b128_int8_fused_on": ms["int8"], "decode_ms_b128_bf16_fused_on": ms["bf16"],
+        "decode_ms_b128_int8_fused_off": off_ms, "profile_int8_b128": profile,
+        "mean_caption_tokens": float((ids_on != END_ID).sum(dim=1).float().mean()),
+    }
+    emit(result)
+    result["launches"] = launches
+    return result
+
+
+# ------------------------------------------------------------------ learning
+
+
+def time_scorers(references: dict, captions: dict):
+    """(scores, C++ seconds, Python seconds) of `captions` scored through the
+    C++ tokenizer and aligner, then through the Python ones; the two paths'
+    seven scores must be equal."""
     t = time.perf_counter()
     cpp = score_captions(references, captions)
     cpp_s = time.perf_counter() - t
@@ -1590,10 +1857,56 @@ def phase_scorer(references: dict, captions: dict, build_s: float) -> dict:
         native.ptb_tokenize, native.meteor_stats = saved
     if set(cpp) != set(SCORE_KEYS) or cpp != py:
         raise AssertionError(f"C++ scores {cpp} differ from the Python path's {py}")
-    result = {"phase": "scorer", "captions": len(captions),
-              "words_per_caption": len(next(iter(captions.values())).split()),
-              "cpp_s": cpp_s, "python_s": py_s, "python_over_cpp": py_s / cpp_s,
-              "library_build_s": build_s, "library": native.library_path().name, "scores": cpp}
+    return cpp, cpp_s, py_s
+
+
+def phase_learning() -> dict:
+    """The JAX package's learning and convergence experiments on the card
+    (`train/learning.py`: the GAN fit at fp32 and bf16, the held-out CE
+    generalization with the trained model's int8 decode through qmatmul, the
+    GAN dynamics with the CE ablation), each held to its thresholds, from
+    this package's seeded init. Then the trained decodes' mean caption
+    length and their scoring through the C++ and the Python scorer."""
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = {}
+    for name, run, check in (
+        ("gan_fit_float32", lambda: learning.gan_fit(learning.learning_config(), DEVICE),
+         learning.check_gan_fit),
+        ("gan_fit_bfloat16",
+         lambda: learning.gan_fit(learning.learning_config(compute_dtype="bfloat16"), DEVICE),
+         learning.check_gan_fit),
+        ("heldout_ce", lambda: learning.heldout_ce(learning.learning_config(), DEVICE),
+         learning.check_heldout_ce),
+        ("gan_dynamics", lambda: learning.gan_dynamics(learning.learning_config(), DEVICE),
+         learning.check_gan_dynamics),
+    ):
+        runs[name] = run()
+        check(runs[name])
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["qmatmul"] == 0:
+        raise AssertionError(f"the trained model's int8 decode did not launch qmatmul: {launches}")
+    # the trained decodes' captions, scored at their own lengths
+    captions, references = {}, {}
+    for name, key in (("gan_fit_float32", "captions"), ("gan_fit_bfloat16", "captions"),
+                      ("heldout_ce", "captions"), ("heldout_ce", "captions_int8"),
+                      ("gan_dynamics", "captions")):
+        r = runs[name]
+        for vid, cap in r[key].items():
+            captions[f"{name}/{key}/{vid}"] = cap
+            references[f"{name}/{key}/{vid}"] = [{"caption": c} for c in r["references"][vid]]
+    _, cpp_s, py_s = time_scorers(references, captions)
+    words = [len(c.split()) for c in captions.values()]
+    drop = ("captions", "captions_int8", "references", "wasserstein", "grad_penalty")
+    result = {
+        "phase": "learning", "seconds": seconds,
+        "config": f"tiny_test_config at widths 64 (the JAX tests'), {len(make_vocab())} words",
+        "experiments": {name: {k: v for k, v in r.items() if k not in drop} for name, r in runs.items()},
+        "trained_captions": len(captions), "mean_caption_words": float(np.mean(words)),
+        "scorer_cpp_s": cpp_s, "scorer_python_s": py_s, "launches": launches,
+    }
     emit(result)
     return result
 
@@ -2306,12 +2619,18 @@ def main() -> None:
         ("vocab_head[tf32x3]", check_vocab_head(cfg, torch.float32)),
     ]
     vocab, params = serving_model(cfg)
+    checks.append(("qmatmul", check_qmatmul(cfg, params)))
+    torch.cuda.empty_cache()
     launches = {"launches": phase_serving(cfg, vocab, params)["launches"]}
     torch.cuda.empty_cache()
     launches["launches_two_pass"] = phase_two_pass(cfg, params)["launches"]
     torch.cuda.empty_cache()
     launches["launches_server"] = phase_server(cfg, vocab, params)["launches"]
+    torch.cuda.empty_cache()
+    launches["launches_int8"] = phase_int8(cfg, params)["launches"]
     del params
+    torch.cuda.empty_cache()
+    launches["launches_learning"] = phase_learning()["launches"]
     torch.cuda.empty_cache()
     phase_train(apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16")))
     torch.cuda.empty_cache()

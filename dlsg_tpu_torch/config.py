@@ -115,7 +115,7 @@ class DLSGConfig:
     decode_fast_lse: bool = True
     # beam top-k recall target; this package always takes the exact top-k
     decode_approx_topk: float = 1.0
-    decode_quant: str = "none"  # 'none' | 'int8' (int8 is not ported yet)
+    decode_quant: str = "none"  # 'none' | 'int8' (inference only; ops/quant.py)
     gan_single_forward: bool = True
     # JAX computes the penalty's parameter gradient by reverse-over-forward
     # when true; this package has one implementation (a double backward)

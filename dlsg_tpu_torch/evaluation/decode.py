@@ -89,7 +89,9 @@ def make_decode_fn(
     caption (module doc: [B, T, 2P], or [B, T, T_frames] for a single-modal
     generator; for beam search, reconstructed through the backpointers).
     Inputs may be numpy arrays or tensors; they are moved to `device`. The
-    frames-only generators ignore `regions`, which may be None."""
+    frames-only generators ignore `regions`, which may be None. The decoder
+    quantizes (int8) when its model's config has `decode_quant="int8"`, as
+    in the JAX package; `cfg`'s `decode_quant` only turns `fast_lse` off."""
     device = resolve_device(device)
     model.to(device)
     beam = beam_size if beam_size is not None else cfg.beam_size

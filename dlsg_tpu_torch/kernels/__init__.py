@@ -5,9 +5,9 @@ A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises. Sources live in `../csrc/`.
 """
 
-from dlsg_tpu_torch.kernels import _build, lstm_scan, vocab_head
+from dlsg_tpu_torch.kernels import _build, lstm_scan, qmatmul, vocab_head
 
-LIBRARIES = (lstm_scan.LIBRARY, vocab_head.LIBRARY)
+LIBRARIES = (lstm_scan.LIBRARY, vocab_head.LIBRARY, qmatmul.LIBRARY)
 
 
 def build_all() -> None:

@@ -19,7 +19,9 @@ variant, timed in the same turns, for a before/after on one card, and adds
 the fp32 beam-5 decode of 128 clips at MSR-VTT widths under the vocab head's
 'whole' and 'against' builds (and with the fused head off). Prints one JSON
 line of microseconds per call, those errors and ptxas's registers per kernel
-of each variant.
+of each variant. qmatmul (the int8 decode's product) runs at the decode's
+three products at G = 640, each with its int8 bound and its library
+yardstick (`int_mm_library`) timed beside it.
 """
 
 from __future__ import annotations
@@ -37,12 +39,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dlsg_tpu_torch.kernels import _build, lstm_scan, vocab_head
+from dlsg_tpu_torch.kernels import _build, lstm_scan, qmatmul, vocab_head
 
 _MMA = ("mma_bf16(acc[0][j], lo, bw);", "mma_bf16(acc[1][j], mid, bw);",
         "mma_bf16(acc[2][j], hi, bw);")
 _LOADS = ("if (c < n_chunks) load_chunk(c);", "if (c + NS - 1 < n_chunks) load_chunk(c + NS - 1);")
-_KERNELS = ("tc_tile_kernel", "tf32x3_tile_kernel", "merge_kernel", "lstm_scan_kernel")
+_KERNELS = ("tc_tile_kernel", "tf32x3_tile_kernel", "merge_kernel", "lstm_scan_kernel",
+            "qmm_tile_kernel", "quantize_rows_kernel")
+# the int8 decode's products at MSR-VTT widths: (weight, K, N) of Wq, Wl, Wv
+QMATMUL_SHAPES = (("Wq", 2860, 4096), ("Wl", 4608, 6144), ("Wv", 1536, 10000))
+PEAK_INT8, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM, dense, 700 W
 _SMALL_TERMS = ("mma_tf32(part[i][j], ah, bl[j][0], bl[j][1]);",
                 "mma_tf32(part[i][j], al, bh[j][0], bh[j][1]);")
 
@@ -87,6 +93,13 @@ VARIANTS = {
             'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
             "  return r & 0xffffe000u;": "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"},
     },
+    qmatmul.LIBRARY: {
+        "whole": {},
+        "no_mainloop": {"const int KT = (Kp + BK - 1) / BK;": "const int KT = 0;"},
+        "no_quantize": {"  const int row = blockIdx.x;\n":
+                        "  const int row = blockIdx.x;\n  if (K > 0) return;\n"},
+        "no_epilogue": {"      if (m >= G) continue;": "      if (m >= 0) continue;"},
+    },
 }
 
 
@@ -104,8 +117,9 @@ def _build_variants(against: Optional[Path]):
                     raise RuntimeError(f"{lib.source.name} no longer has `{stmt}`")
                 text = text.replace(stmt, new)
             texts[name] = text
-        if against is not None:
-            texts["against"] = (against / "dlsg_tpu_torch" / "csrc" / lib.source.name).read_text()
+        other = None if against is None else against / "dlsg_tpu_torch" / "csrc" / lib.source.name
+        if other is not None and other.exists():  # a parent may lack a newer kernel
+            texts["against"] = other.read_text()
         for name, text in texts.items():
             src = out / f"{lib.name}_{name}.cu"
             src.write_text(text)
@@ -173,6 +187,24 @@ def _f64_error(h, w, b, k: int):
     return error
 
 
+def int_mm_library(x: torch.Tensor, w) -> torch.Tensor:
+    """qmatmul's library yardstick (one PyTorch call for the product, never
+    called by the port): the plain row quantization, torch._int_mm on K
+    padded to Kp (a multiple of 32, hence of the 8 it needs) with the
+    weight's K-major layout, then the rescale."""
+    xq, sx = qmatmul.quantize_rows_plain(x)
+    xq8 = torch.nn.functional.pad(xq, (0, w.qt.shape[1] - x.shape[1])).to(torch.int8)
+    return torch._int_mm(xq8, w.qt.t()).float() * sx * w.s[None, :]
+
+
+def qmatmul_bound_us(G: int, K: int, N: int) -> float:
+    """Least microseconds for qmatmul at (G, K, N): 2GKN operations at the
+    int8 rate or x, the int8 weight, its scales and the output once through
+    memory, whichever is larger."""
+    nbytes = G * K * 4 + N * qmatmul.padded_k(K) + N * 4 + G * N * 4
+    return 1e6 * max(2.0 * G * K * N / PEAK_INT8, nbytes / PEAK_BYTES)
+
+
 def _decode_calls(n_clips: int = 128, vocab: int = 10000):
     """The fp32 beam-5 decode of `n_clips` MSR-VTT clips (seeded random
     weights, both kernel switches on), with the fused vocab head on and off."""
@@ -230,6 +262,20 @@ def main(argv=None) -> None:
         lstm_scan.LIBRARY: [("lstm_scan B=128 T=26 H=1024, one direction",
                              lambda: lstm_scan.lstm_scan(xw, w_hh), 10, lambda n: True, None)],
     }
+    from dlsg_tpu_torch.ops.quant import quantize_weight
+
+    qmm_reference = {}
+    calls[qmatmul.LIBRARY] = []
+    for name, K, N in QMATMUL_SHAPES:
+        qx = torch.tanh(torch.randn(640, K, generator=g)).cuda()
+        qw = quantize_weight((torch.randn(K, N, generator=g) / K**0.5).cuda())
+        label = f"qmatmul {name} x [640,{K}] fp32, qt [{N},{qmatmul.padded_k(K)}] int8"
+        calls[qmatmul.LIBRARY].append(
+            (label, lambda qx=qx, qw=qw: qmatmul.qmatmul(qx, *qw), 20, lambda n: True, None))
+        qmm_reference[label] = {
+            "bound_us": qmatmul_bound_us(640, K, N),
+            "library_us": _us_per_call(lambda qx=qx, qw=qw: int_mm_library(qx, qw), 20),
+        }
     if args.against is not None:
         decode = _decode_calls()
         label = "decode fp32 beam-5 128 msr-vtt clips, fused vocab head"
@@ -252,7 +298,8 @@ def main(argv=None) -> None:
             finally:  # the other library runs its own build (the decode runs both)
                 lib._lib = saved[lib]
     print(json.dumps({"device": torch.cuda.get_device_name(0), "us_per_call": result,
-                      "max_abs_err_vs_float64": errors, "registers": registers}), flush=True)
+                      "max_abs_err_vs_float64": errors, "qmatmul_bound_and_library": qmm_reference,
+                      "registers": registers}), flush=True)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,13 @@ slice of the query LSTM's input projection, and the fused per-step weight
 stacks, so a step runs a few large matmuls. Beam search decodes all B*beam
 hypotheses in one batched step.
 
+With `cfg.decode_quant="int8"` the inference paths (greedy decode and the
+beam state) quantize the fused LSTM stacks `Wq`, `Wl` and the vocab
+projection `Wv` once per decode (`precompute(quant=True)`) and run their
+products through `ops/quant.py::qmatmul`; the teacher-forced scan never
+quantizes, as in JAX. `Wq` and `Wl` are quantized from the compute-dtype
+stacks and `Wv` from the fp32 master kernel, JAX's sources.
+
 Training runs the teacher-forced scan (`Decoder.forward` with captions):
 one scheduled-sampling coin per step for the whole batch, and dropout at
 the JAX sites: `cfg.dropout` on the word embedding, the query LayerNorm's
@@ -37,8 +44,10 @@ from torch import nn
 
 from dlsg_tpu_torch.config import DLSGConfig
 from dlsg_tpu_torch.models.layers import AttentionShare
+from dlsg_tpu_torch.ops import quant as quant_ops
 from dlsg_tpu_torch.ops.linear import LN_EPS, Dense, Dropout, Embed, LayerNorm, matmul_f32
 from dlsg_tpu_torch.ops.lstm import LSTMCell, SplitInputLSTMCell, lstm_gates
+from dlsg_tpu_torch.ops.quant import QuantWeight, quantize_weight
 from dlsg_tpu_torch.parallel.dist import copy_to_model, gather_from_model
 from dlsg_tpu_torch.vocab import START_ID
 
@@ -56,13 +65,6 @@ def expand_pre_to_beams(pre: Pre, beam_size: int) -> Pre:
         k: (v.repeat_interleave(beam_size, dim=0) if k in BATCH_PRE_KEYS else v)
         for k, v in pre.items()
     }
-
-
-def _check_quant(cfg: DLSGConfig) -> None:
-    if cfg.decode_quant != "none":
-        raise NotImplementedError(
-            f"decode_quant={cfg.decode_quant!r} is not ported yet; use 'none'"
-        )
 
 
 class DecoderStep(nn.Module):
@@ -93,12 +95,14 @@ class DecoderStep(nn.Module):
     def _atts(self):
         return [self.context_att, self.context_att_2] if self.multi_modal else [self.context_att]
 
-    def precompute(self, feats, feats2, global_feat) -> Pre:
+    def precompute(self, feats, feats2, global_feat, quant: bool = False) -> Pre:
         """All loop-invariant work, once per sequence: attention K/V of both
         branches stacked as [B, NB, P, VH], the static query-LSTM projection,
         `[W_ih; W_hh]` stacks of both cells, the branches' Q kernels side by
         side, out kernels and LayerNorm affines stacked on a branch axis, and
-        the vocab projection in compute dtype."""
+        the vocab projection in compute dtype. With `quant` the two stacks
+        and the vocab projection (this rank's columns of it) become
+        `QuantWeight`s (module doc)."""
         cd = self.cfg.cdtype
         atts = self._atts()
         pre = {"gw": self.query_lstm.project_static(global_feat)}
@@ -109,22 +113,32 @@ class DecoderStep(nn.Module):
         pre["V"] = torch.stack([v for _, v in kv], dim=1)
         pre["Wq"], pre["bq"] = self.query_lstm.fused_weights()
         pre["Wl"], pre["bl"] = self.lang_lstm.fused_weights()
+        if quant:
+            pre["Wq"], pre["Wl"] = quantize_weight(pre["Wq"]), quantize_weight(pre["Wl"])
         sw = [a.step_weights() for a in atts]
         pre["WQ"] = torch.cat([w[0] for w in sw], dim=1).to(cd).contiguous()  # [QH, NB*VH]
         pre["WO"] = torch.stack([w[1] for w in sw], dim=0).to(cd)  # [NB, VH, VH]
         pre["ln_scale"] = torch.stack([w[2] for w in sw], dim=0)  # [NB, VH]
         pre["ln_bias"] = torch.stack([w[3] for w in sw], dim=0)
-        pre["Wv"] = self.word_restore.kernel(cd)  # [Hd, V], or this rank's columns
+        # [Hd, V], or this rank's columns; quantized from the fp32 master
+        wr = self.word_restore
+        pre["Wv"] = quantize_weight(wr.kernel()) if quant else wr.kernel(cd)
         pre["bv"] = self.word_restore.bias.float()
         return pre
+
+    def _mm(self, x: torch.Tensor, w) -> torch.Tensor:
+        """fp32 x @ w: a `QuantWeight` takes `qmatmul` on x as it is (JAX's
+        `_mm` quantizes the uncast x), a kernel the compute-dtype product."""
+        if isinstance(w, QuantWeight):
+            return quant_ops.qmatmul(x, w.qt, w.s)
+        return matmul_f32(x.to(self.cfg.cdtype), w)
 
     def vocab_logits(self, out: torch.Tensor, pre: Pre) -> torch.Tensor:
         """fp32 logits [B, V] of `out` [B, Hd]. With the head split over the
         model axis, this rank's columns, then gathered (module doc)."""
         if self.word_restore.out_shard is None:
-            return matmul_f32(out.to(self.cfg.cdtype), pre["Wv"]) + pre["bv"]
-        local = matmul_f32(copy_to_model(out).to(self.cfg.cdtype), pre["Wv"]) + pre["bv"]
-        return gather_from_model(local)
+            return self._mm(out, pre["Wv"]) + pre["bv"]
+        return gather_from_model(self._mm(copy_to_model(out), pre["Wv"]) + pre["bv"])
 
     def decode_hidden(self, word, query_h, query_c, lang_h, lang_c, pre: Pre,
                       rng: Optional[torch.Generator] = None):
@@ -135,7 +149,7 @@ class DecoderStep(nn.Module):
         cd = self.cfg.cdtype
         vh = self.cfg.visual_hidden_size
         x = torch.cat([lang_h, word, query_h], dim=-1)
-        gates = matmul_f32(x.to(cd), pre["Wq"]) + pre["bq"] + pre["gw"].float()
+        gates = self._mm(x, pre["Wq"]) + pre["bq"] + pre["gw"].float()
         q_h, q_c = lstm_gates(gates, query_c, cd)
         query_current = self.query_drop(self.query_lstm_layernorm(q_h), rng)
 
@@ -159,7 +173,7 @@ class DecoderStep(nn.Module):
         ctx = self._atts()[0].drop(ctx, rng)  # one mask over both branches
 
         lang_x = torch.cat([ctx, query_current, lang_h], dim=-1)
-        gates2 = matmul_f32(lang_x.to(cd), pre["Wl"]) + pre["bl"]
+        gates2 = self._mm(lang_x, pre["Wl"]) + pre["bl"]
         l_h, l_c = lstm_gates(gates2, lang_c, cd)
         l_h = self.lang_drop(l_h, rng)  # the dropped l_h is also the next state
         decoder_output = torch.tanh(self.lang_lstm_layernorm(l_h))
@@ -192,12 +206,15 @@ class Decoder(nn.Module):
             g = torch.cat([g, feats2.mean(dim=1)], dim=-1)
         return g
 
-    def _precompute(self, feats, feats2) -> Pre:
-        _check_quant(self.cfg)
+    def _precompute(self, feats, feats2, quant: bool = False) -> Pre:
         global_feat = self._global_feat(feats, feats2)
         if feats2 is None:
             feats2 = feats.new_zeros(feats.shape[0], 1, self.cfg.visual_hidden_size)
-        return self.step.precompute(feats, feats2, global_feat)
+        return self.step.precompute(feats, feats2, global_feat, quant)
+
+    def _quant(self) -> bool:
+        """Whether inference quantizes (`decode_quant`; training never does)."""
+        return self.cfg.decode_quant == "int8"
 
     def _init_state(self, feats) -> State:
         cfg = self.cfg
@@ -219,7 +236,7 @@ class Decoder(nn.Module):
         int64, alpha)."""
         if captions is not None:
             return self._teacher_forced(feats, captions, teacher_forcing_ratio, feats2, rng)
-        pre = self._precompute(feats, feats2)
+        pre = self._precompute(feats, feats2, self._quant())
         st = self._init_state(feats)
         qh, qc, lh, lc = st["qh"], st["qc"], st["lh"], st["lc"]
         word_id = torch.full((feats.shape[0],), START_ID, dtype=torch.int64, device=feats.device)
@@ -291,4 +308,4 @@ class Decoder(nn.Module):
 
     def init_beam_state(self, feats, feats2) -> Tuple[State, Pre]:
         """Initial (state, pre) for beam search."""
-        return self._init_state(feats), self._precompute(feats, feats2)
+        return self._init_state(feats), self._precompute(feats, feats2, self._quant())

@@ -9,9 +9,11 @@ tests/test_torch_tensor_parallel.py and tests/test_torch_mesh.py.
 Imports dlsg_tpu_torch only (no jax, no dlsg_tpu). Jobs:
 
 - tp (data 1 x model 2): from IN_DIR's weights and inputs, the
-  teacher-forced logits, beam-5 ids with the fused head off and on, one GAN
-  step and one CE step (dropout off, epsilon 1, the penalty's mixing
-  weights given), then the same forward and GAN step with dropout on;
+  teacher-forced logits, beam-5 ids with the fused head off and on, the
+  int8 decode's (decode_quant="int8": each rank quantizes its columns of the
+  head) first beam-step logits and beam-5 ids with the fused head off and
+  on, one GAN step and one CE step (dropout off, epsilon 1, the penalty's
+  mixing weights given), then the same forward and GAN step with dropout on;
 - steps: the GAN and CE steps on this data index's rows of the global
   batch, on a (data 2 x model 2) mesh of 4 ranks, a (data 2) mesh of 2, or
   one process without a group;
@@ -75,7 +77,8 @@ def _models(cfg, weights, mesh):
     g, d = CapGnnModel(cfg, V, device="cpu"), DiscV2(cfg, V, device="cpu")
     g.load_state_dict(weights["gen"])
     d.load_state_dict(weights["disc"])
-    shard_params(g, mesh)
+    if mesh is not None:
+        shard_params(g, mesh)
     return g, d
 
 
@@ -102,6 +105,29 @@ def _steps(cfg, weights, data, mesh, rows):
     return out
 
 
+def int8_decode(weights, frames, regions, mesh=None) -> dict:
+    """The int8 decode of `weights` (its generator; the head split over
+    `mesh`'s model axis when given): the raw logits of the first beam step
+    from <start>, gathered whole, and the beam-5 ids with the fused head off
+    and on."""
+    from dlsg_tpu_torch.config import tiny_test_config
+    from dlsg_tpu_torch.evaluation.decode import make_decode_fn
+    from dlsg_tpu_torch.vocab import START_ID
+
+    qcfg = tiny_test_config(dropout=0.0, beam_size=BEAM, decode_quant="int8")
+    g, _ = _models(qcfg, weights, mesh)
+    out = {}
+    with torch.inference_mode():
+        state, pre = g.decoder_init_beam_state(*g.encode(frames, regions))
+        start = torch.full((frames.shape[0],), START_ID, dtype=torch.int64)
+        out["int8_logits"] = g.decoder_beam_step(start, state, pre)[0].clone()
+    for head in ("off", "on"):
+        hcfg = tiny_test_config(dropout=0.0, beam_size=BEAM, decode_quant="int8",
+                                use_fused_vocab_head=head)
+        out[f"int8_ids_{head}"] = make_decode_fn(g, hcfg, device="cpu")(frames, regions)
+    return out
+
+
 def tp_job(in_dir: str) -> dict:
     from dlsg_tpu_torch.config import tiny_test_config
     from dlsg_tpu_torch.evaluation.decode import make_decode_fn
@@ -125,6 +151,7 @@ def tp_job(in_dir: str) -> dict:
         for head in ("off", "on"):
             hcfg = tiny_test_config(dropout=0.0, beam_size=BEAM, use_fused_vocab_head=head)
             out[f"ids_{head}"] = make_decode_fn(g, hcfg, device="cpu")(data["frames"], data["regions"])
+        out.update(int8_decode(weights, frames, regions, mesh))
         out.update(_steps(cfg, weights, data, mesh, slice(None)))
     finally:
         restore()

@@ -16,7 +16,10 @@ tests hold matmul_f32's gradients (bf16 operands, cast back to bf16: one
 bf16 ulp, rtol 2^-7) and one tiny GAN step's Adam moments (fp32, 1e-4 of
 each tensor's max-abs) against the CPU. The trainer's prefetcher (pinned
 host slots, side-stream copies) must deliver every batch bitwise. The
-two-pass decode (fp32, both kernels) gives the single pass's token ids."""
+two-pass decode (fp32, both kernels) gives the single pass's token ids.
+The int8 product (qmatmul) is exact in its integer part and correctly
+rounded elsewhere, so it equals its plain version bitwise, and the int8
+decode on the card gives the CPU's token ids."""
 
 from dataclasses import replace
 
@@ -27,6 +30,8 @@ import torch
 from dlsg_tpu_torch.config import tiny_test_config
 from dlsg_tpu_torch.evaluation.decode import _make_beam_from_feats, make_decode_fn
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB
+from dlsg_tpu_torch.kernels.qmatmul import LIBRARY as QMM_LIB
+from dlsg_tpu_torch.kernels.qmatmul import K_ALIGN
 from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain, lstm_scan_plan, max_hidden
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB
 from dlsg_tpu_torch.kernels.vocab_head import (
@@ -39,6 +44,7 @@ from dlsg_tpu_torch.models.discriminator import DiscV2
 from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.ops import linear
 from dlsg_tpu_torch.ops.linear import matmul_f32
+from dlsg_tpu_torch.ops.quant import qmatmul, qmatmul_plain, quantize_weight
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer
 from dlsg_tpu_torch.train.steps import make_gan_train_step
@@ -218,6 +224,73 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         lstm_scan(torch.zeros(2, 3, 16, device=card, dtype=torch.bfloat16), torch.zeros(4, 16, device=card))
     with pytest.raises(ValueError):
         lstm_scan(torch.zeros(2, 3, 16, device=card), torch.zeros(4, 12, device=card))
+
+
+@pytest.mark.parametrize("N", [4096, 10000, 39])
+@pytest.mark.parametrize("K", [2860, 4608, 1536, 40])
+@pytest.mark.parametrize("G", [1, 13, 128, 640])
+def test_qmatmul_kernel_equals_plain_bitwise(card, G, K, N):
+    """The int8 decode's shapes (G = B or B x beam rows; K x N of Wq 2860 x
+    4096, Wl 4608 x 6144, Wv 1536 x 10000) and ragged ones: K = 2860 and 40
+    are no multiple of K_ALIGN, N = 39 and 10000 no multiple of the tile."""
+    x = _rand(G, K, seed=G + K).to(card)
+    qw = quantize_weight((_rand(K, N, seed=N) / K**0.5).to(card))
+    before = QMM_LIB.launches
+    got = qmatmul(x, *qw)
+    torch.cuda.synchronize()
+    assert QMM_LIB.launches == before + 1
+    assert torch.equal(got, qmatmul_plain(x, *qw))
+
+
+def test_qmatmul_scales_rows_of_any_range(card):
+    """Rows of zeros (scale floor 1e-12), tiny and huge magnitudes and a bf16
+    x (cast to fp32 first, as the plain version)."""
+    x = _rand(6, 300, seed=1).to(card)
+    x[1] = 0.0
+    x[2] *= 1e-30
+    x[3] *= 1e30
+    qw = quantize_weight(_rand(300, 77, seed=2).to(card))
+    assert torch.equal(qmatmul(x, *qw), qmatmul_plain(x, *qw))
+    xb = x[:, :].to(torch.bfloat16)
+    xb[3] = 1.0
+    assert torch.equal(qmatmul(xb, *qw), qmatmul_plain(xb, *qw))
+
+
+def test_qmatmul_wrapper_refusals_and_constants(card):
+    qw = quantize_weight(torch.ones(40, 8, device=card))
+    x = torch.ones(3, 40, device=card)
+    assert QMM_LIB.load().qmatmul_k_align() == K_ALIGN
+    assert QMM_LIB.load().qmatmul_smem_bytes() <= 232_448
+    with pytest.raises(NotImplementedError):
+        qmatmul(x.requires_grad_(), *qw)
+    x = x.detach()
+    with pytest.raises(ValueError):
+        qmatmul(x, qw.qt[:, 1:], qw.s)  # not padded to K_ALIGN
+    unaligned = torch.zeros(8 * 64 + 1, dtype=torch.int8, device=card)[1:].view(8, 64)
+    with pytest.raises(ValueError):
+        qmatmul(x, unaligned, qw.s)  # 16-byte alignment
+    with pytest.raises(ValueError):
+        qmatmul(x, qw.qt.t().contiguous().t(), qw.s)  # not contiguous
+    with pytest.raises(ValueError):
+        qmatmul(x, qw.qt.cpu(), qw.s)  # devices differ
+
+
+@pytest.mark.parametrize("fused", ["off", "on"])
+def test_tiny_int8_decode_on_card_matches_cpu(card, fused):
+    """fp32 beam-3 and greedy int8 decodes on the card (qmatmul, both
+    kernels) give the CPU decode's token ids from the same seeded weights."""
+    cfg = tiny_test_config(use_pallas_lstm=True, use_fused_vocab_head=fused, decode_quant="int8")
+    rng = np.random.default_rng(4)
+    frames = rng.normal(size=(4, cfg.max_frames, cfg.feature_size)).astype(np.float32)
+    regions = rng.normal(size=(4, cfg.max_frames, cfg.num_obj, cfg.region_feature_size)).astype(np.float32)
+    for beam in (3, 1):
+        cpu = make_decode_fn(CapGnnModel(cfg, 50, device="cpu"), cfg, beam_size=beam, device="cpu")
+        gpu = make_decode_fn(CapGnnModel(cfg, 50, device=card), cfg, beam_size=beam, device=card)
+        before = QMM_LIB.launches
+        ids = gpu(frames, regions)
+        per_step = 3 if beam == 1 or fused == "off" else 2
+        assert QMM_LIB.launches - before >= per_step  # Wq, Wl (and Wv) each step
+        assert ids.cpu().tolist() == cpu(frames, regions).tolist()
 
 
 @pytest.mark.parametrize("fused", ["off", "on"])

@@ -7,7 +7,9 @@ Three jobs run once for the module, as real processes on gloo
 (tests/helpers/torch_tp_worker.py, which imports dlsg_tpu_torch alone):
 - 2 ranks on a (data 1 x model 2) mesh take the teacher-forced logits,
   beam-5 ids with the fused head off and on (the plain K1 on each rank's 20
-  columns and the merge), one GAN and one CE step (dropout off, epsilon 1,
+  columns and the merge), the int8 decode's first-step logits and ids (each
+  rank's columns quantized; held bitwise to one process's int8 decode, run
+  in this process), one GAN and one CE step (dropout off, epsilon 1,
   the penalty's mixing weights given), then the forward and a GAN step with
   dropout on;
 - 4 ranks on a (data 2 x model 2) mesh take the same steps, each data index
@@ -193,6 +195,40 @@ def test_beam_decode_ids_equal_jax_tp_decode(jobs, head):
     want, tp, *_ = jobs
     for r in tp:
         np.testing.assert_array_equal(r[f"ids_{head}"].numpy(), want["ids"])
+
+
+@pytest.fixture(scope="module")
+def int8_one_process(jobs, tmp_path_factory):
+    """The worker's int8 decode in this process, without a group, of the
+    jobs' weights (the same seeded init): the whole head quantized at once."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_tp_worker", WORKER)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    cfg = tiny_test_config(dropout=0.0)
+    weights = {"gen": CapGnnModel(cfg, V, device="cpu").state_dict(),
+               "disc": DiscV2(cfg, V, device="cpu").state_dict()}
+    batch = _global_batch(cfg, [9, 9, 8, 9, 2, 2, 3, 2], seed=3)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the ranks
+    try:
+        return worker.int8_decode(weights, torch.from_numpy(batch["frames"]),
+                                  torch.from_numpy(batch["regions"]))
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_int8_split_head_matches_one_process(jobs, int8_one_process):
+    """decode_quant="int8" with the head split over the model axis: each
+    rank quantizes its own columns (the scales are per column), so the
+    gathered first-step logits equal one process's int8 logits bitwise, and
+    the beam-5 ids, fused head off and on, are equal."""
+    _, tp, *_ = jobs
+    for r in tp:
+        assert torch.equal(r["int8_logits"], int8_one_process["int8_logits"])
+        for head in ("off", "on"):
+            assert torch.equal(r[f"int8_ids_{head}"], int8_one_process[f"int8_ids_{head}"]), head
 
 
 @pytest.mark.parametrize("step", ["gan", "ce"])
