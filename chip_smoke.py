@@ -16,8 +16,8 @@ line per phase:
 2. build: seconds to build every kernel (one nvcc per source, in parallel,
    with g++ building the scorer library beside them), ptxas's registers per
    kernel, and the tensor-core instructions `cuobjdump` finds in each
-   library (HMMA for the float products, IMMA for qmatmul's s8 products,
-   which must be there);
+   library (HMMA for the float mma.sync products; qmatmul's s8 products must
+   be warpgroup wgmma, IGMMA, with no IMMA mma.sync left);
 3. kernel checks: each kernel against its plain PyTorch version at the
    shapes the serving path gives it (MSR-VTT widths, batch 128, beam 5); the
    vocab head once per tile form, bf16 w (bf16 tensor-core tiles, the
@@ -29,7 +29,9 @@ line per phase:
    serving weights) at G = 128 and 640 rows, bitwise its plain version,
    with its library yardstick (row quantize + torch._int_mm + rescale,
    which must also be bitwise equal) and a bf16 torch.mm of each shape, and
-   each one's device time without host time (torch.profiler);
+   each one's device time without host time (torch.profiler), qmatmul's
+   host time a call (the wrapper's enqueue) and its device time's share of
+   the bound;
 4. serving: a Captioner at MSR-VTT widths (bf16 compute, both kernel
    switches on, 10 000-word vocabulary, seeded random weights) warms every
    bucket and answers beam-5 requests of 3, 50 and 128 clips and one greedy
@@ -237,7 +239,8 @@ from dlsg_tpu_torch.evaluation.decode import make_decode_fn  # noqa: E402
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain  # noqa: E402
 from dlsg_tpu_torch.kernels.qmatmul import LIBRARY as QMM_LIB  # noqa: E402
-from dlsg_tpu_torch.kernels.breakdown import int_mm_library  # noqa: E402
+from dlsg_tpu_torch.kernels.qmatmul import qmatmul_plan  # noqa: E402
+from dlsg_tpu_torch.kernels.breakdown import device_us_per_call, int_mm_library  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import ROUTE_LAUNCHES  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_plan, vocab_head_topk  # noqa: E402
@@ -428,16 +431,20 @@ def phase_device() -> dict:
     return info
 
 
+# tensor-core instructions: warp-level mma.sync (HMMA floating point, IMMA
+# integer) and warpgroup wgmma (HGMMA, IGMMA); no name holds another
+MMA_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
+
+
 def sass_mma_count(path) -> dict:
-    """Tensor-core instructions in a built library's machine code: HMMA
-    (floating-point operands) and IMMA (integer operands, qmatmul's s8)."""
+    """Tensor-core instructions in a built library's machine code (MMA_OPS)."""
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     out = subprocess.run(
         [str(Path(cuda_home) / "bin" / "cuobjdump"), "-sass", str(path)],
         capture_output=True, text=True, timeout=120, check=True,
     )
     lines = out.stdout.splitlines()
-    return {op: sum(op in ln for ln in lines) for op in ("HMMA", "IMMA")}
+    return {op: sum(op in ln for ln in lines) for op in MMA_OPS}
 
 
 def phase_build() -> float:
@@ -467,8 +474,10 @@ def phase_build() -> float:
         for lib in kernels.LIBRARIES
     }
     mma = {lib.name: sass_mma_count(lib.path()) for lib in kernels.LIBRARIES}
-    if not all(sum(n.values()) for n in mma.values()) or not mma[QMM_LIB.name]["IMMA"]:
+    if not all(sum(n.values()) for n in mma.values()):
         raise AssertionError(f"a kernel library has no tensor-core instruction: {mma}")
+    if not mma[QMM_LIB.name]["IGMMA"] or mma[QMM_LIB.name]["IMMA"]:
+        raise AssertionError(f"qmatmul's s8 products must be wgmma (IGMMA), no mma.sync: {mma}")
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "sass_mma": mma,
           "scorer_library_s": native_build["s"], "scorer_library": native.library_path().name})
     return native_build["s"]
@@ -1643,21 +1652,22 @@ def int8_model(cfg: DLSGConfig, params: dict):
 
 
 def device_ms(fn, n: int = 20) -> float:
-    """Device milliseconds of one `fn` call without its host time: the
-    kernel time torch.profiler records over n back-to-back calls (L2 warm),
-    over n."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device milliseconds of one `fn` call without its host time (the kernel
+    time torch.profiler records over n back-to-back calls, L2 warm)."""
+    return device_us_per_call(fn, n) / 1e3
 
+
+def host_us(fn, n: int = 50) -> float:
+    """Host microseconds a call of `fn` takes to enqueue its work (wall clock
+    over n back-to-back calls, no synchronisation between them)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    return total_us / 1e3 / n
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def check_qmatmul(cfg: DLSGConfig, params: dict) -> dict:
@@ -1666,10 +1676,11 @@ def check_qmatmul(cfg: DLSGConfig, params: dict) -> dict:
     row counts (B = 128 on the first beam step, B x beam = 640 after), x =
     tanh(N(0, 1)) like the decoder's states: bitwise its plain version. The
     kernels-line numbers are one beam step's three products at G = 640,
-    summed; `per_call` has each call, with a bf16 torch.mm of the same shape
-    (unquantized weights, fp32 output) beside the library's int8 product,
-    and the device time of each of the three without host time
-    (`device_ms`)."""
+    summed; `per_call` has each call with its plan (tile width, blocks),
+    a bf16 torch.mm of the same shape (unquantized weights, fp32 output)
+    beside the library's int8 product, the device time of each of the three
+    without host time (`device_ms`), qmatmul's host time a call (`host_us`)
+    and the bound's share of its device time."""
     qcfg, model = int8_model(cfg, params)
     fr, rg = (torch.from_numpy(a).to(DEVICE) for a in features(BATCH, cfg, seed=SEED + 3))
     with torch.inference_mode():
@@ -1694,8 +1705,10 @@ def check_qmatmul(cfg: DLSGConfig, params: dict) -> dict:
             ops = 2.0 * G * K * N
             nbytes = G * K * 4 + N * Kp + N * 4 + G * N * 4
             bms, by = bound_ms(ops, PEAK_INT8, nbytes)
+            plan = qmatmul_plan(G, K, N, torch.cuda.get_device_properties(0).multi_processor_count)
             shapes.append({
-                "weight": name, "G": G, "K": K, "N": N, "Kp": Kp,
+                "weight": name, "G": G, "K": K, "N": N, "Kp": Kp, "block_n": plan.block_n,
+                "blocks": plan.blocks, "tiles": plan.tiles[0] * plan.tiles[1],
                 "ms": time_ms(lambda: qmatmul(x, *w)),
                 "plain_ms": time_ms(lambda: qmatmul_plain(x, *w)),
                 "library_ms": time_ms(lambda: int_mm_library(x, w)),
@@ -1703,8 +1716,10 @@ def check_qmatmul(cfg: DLSGConfig, params: dict) -> dict:
                 "device_ms": device_ms(lambda: qmatmul(x, *w)),
                 "library_device_ms": device_ms(lambda: int_mm_library(x, w)),
                 "bf16_mm_device_ms": device_ms(lambda: torch.mm(xb, wb, out_dtype=torch.float32)),
+                "host_us": host_us(lambda: qmatmul(x, *w)),
                 "bound_ms": bms, "bound_by": by,
             })
+            shapes[-1]["bound_share_of_device"] = bms / shapes[-1]["device_ms"]
     if err != 0.0:
         raise AssertionError(f"qmatmul differs from its plain version: max-abs {err}, want 0")
     step640 = [s for s in shapes if s["G"] == BATCH * BEAM]
@@ -1716,12 +1731,13 @@ def check_qmatmul(cfg: DLSGConfig, params: dict) -> dict:
         "replaces": "dlsg_tpu/ops/quant.py:35",
         "shapes": "one int8 beam step's Wq, Wl and Wv products at G = 640, summed; per call in "
                   "`per_call`",
-        "design": "row-quantize launch, then 128 x 128 tiles of mma.sync m16n8k32 s8 on a "
-                  "4-stage cp.async ring of K-major int8 tiles",
+        "design": "row-quantize launch (a warp a row, 16-byte loads), then a persistent "
+                  "warp-specialized kernel: TMA into an mbarrier ring, wgmma m64nBNk32 s8 on "
+                  "two consumer warpgroups, a staged 16-byte epilogue",
         "max_abs_err": err, "tolerance": 0.0, "library_equal_bitwise": library_equal,
         **{k: sum(s[k] for s in step640) for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                    "bf16_mm_ms", "device_ms", "library_device_ms",
-                                                   "bf16_mm_device_ms")},
+                                                   "bf16_mm_device_ms", "host_us")},
         "bound_by": max(by_ms, key=by_ms.get), "per_call": shapes,
     }
 

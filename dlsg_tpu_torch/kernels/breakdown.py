@@ -21,13 +21,19 @@ the fp32 beam-5 decode of 128 clips at MSR-VTT widths under the vocab head's
 line of microseconds per call, those errors and ptxas's registers per kernel
 of each variant. qmatmul (the int8 decode's product) runs at the decode's
 three products at G = 640, each with its int8 bound and its library
-yardstick (`int_mm_library`) timed beside it.
+yardstick (`int_mm_library`) timed beside it; its variants also get their
+device time without host time (torch.profiler, `device_us_per_call`), and
+the whole kernel is timed at each tile width the plan can choose. An
+`--against` source whose wrapper module differs from this checkout's (a
+changed C interface, as qmatmul's in the Hopper redesign) runs through
+that checkout's own wrapper.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import re
 import subprocess
@@ -45,12 +51,15 @@ _MMA = ("mma_bf16(acc[0][j], lo, bw);", "mma_bf16(acc[1][j], mid, bw);",
         "mma_bf16(acc[2][j], hi, bw);")
 _LOADS = ("if (c < n_chunks) load_chunk(c);", "if (c + NS - 1 < n_chunks) load_chunk(c + NS - 1);")
 _KERNELS = ("tc_tile_kernel", "tf32x3_tile_kernel", "merge_kernel", "lstm_scan_kernel",
-            "qmm_tile_kernel", "quantize_rows_kernel")
+            "qmm_wgmma_kernel", "qmm_tile_kernel", "quantize_rows_kernel")
 # the int8 decode's products at MSR-VTT widths: (weight, K, N) of Wq, Wl, Wv
 QMATMUL_SHAPES = (("Wq", 2860, 4096), ("Wl", 4608, 6144), ("Wv", 1536, 10000))
 PEAK_INT8, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM, dense, 700 W
 _SMALL_TERMS = ("mma_tf32(part[i][j], ah, bl[j][0], bl[j][1]);",
                 "mma_tf32(part[i][j], al, bh[j][0], bh[j][1]);")
+
+
+_QROW = "  const int chunks = Kp / 16;  // 16-value steps of a row\n"
 
 
 def _cut(*stmts):
@@ -96,11 +105,21 @@ VARIANTS = {
     qmatmul.LIBRARY: {
         "whole": {},
         "no_mainloop": {"const int KT = (Kp + BK - 1) / BK;": "const int KT = 0;"},
-        "no_quantize": {"  const int row = blockIdx.x;\n":
-                        "  const int row = blockIdx.x;\n  if (K > 0) return;\n"},
-        "no_epilogue": {"      if (m >= G) continue;": "      if (m >= 0) continue;"},
+        "no_quantize": {_QROW: _QROW + "  if (K > 0) return;\n"},
+        # a store that never happens keeps the products (ptxas drops unread wgmma)
+        "no_epilogue": {
+            "      store_tile<BN>(acc, epi_wg, s_wg, 1 + wg, sx, s, out, m0, n0, G, N);\n":
+                "      if (acc[0] == 0x7fffffff) out[0] = 0.f;\n"},
+        # the epilogue staged as before but nothing written to device memory
+        "no_store": {"          *reinterpret_cast<float4*>(dst) = v;":
+                     "          if (v.x == 1e30f) dst[0] = 0.f;"},
+        # 64-row tiles, one consumer warpgroup a block, same grid (still right)
+        "one_consumer": {"constexpr int CONSUMERS = 2;": "constexpr int CONSUMERS = 1;"},
     },
 }
+# the current wrapper module of each library; an --against checkout's own
+# wrapper takes its place while its build is bound (`_against_wrappers`)
+WRAPPERS = {lstm_scan.LIBRARY: lstm_scan, vocab_head.LIBRARY: vocab_head, qmatmul.LIBRARY: qmatmul}
 
 
 def _build_variants(against: Optional[Path]):
@@ -151,6 +170,22 @@ def _registers(ptxas_log: str) -> dict:
     return out
 
 
+def _against_wrappers(against: Optional[Path]) -> dict:
+    """library -> the --against checkout's wrapper module, for each library
+    whose wrapper file there differs from this checkout's (loaded under
+    another name; it binds its own build, `_bind`)."""
+    out = {}
+    for lib, mod in WRAPPERS.items():
+        other = None if against is None else against / "dlsg_tpu_torch" / "kernels" / f"{lib.name}.py"
+        if other is None or not other.exists() or other.read_text() == Path(mod.__file__).read_text():
+            continue
+        spec = importlib.util.spec_from_file_location(f"against_{lib.name}", other)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        out[lib] = module
+    return out
+
+
 def _bind(lib: _build.CudaLibrary, so) -> None:
     handle = ctypes.CDLL(str(so))
     for fn, (argtypes, restype) in lib.signatures.items():
@@ -173,6 +208,27 @@ def _us_per_call(fn, n: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n * 1e3
+
+
+def device_us_per_call(fn, n: int, by_kernel: Optional[dict] = None) -> float:
+    """Device microseconds of one `fn` call without its host time: the kernel
+    time torch.profiler records over n back-to-back calls, over n; with
+    `by_kernel`, each kernel's share is added there under its name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if by_kernel is not None:
+        for e in kernels:
+            name = next((k for k in _KERNELS if k in e.key), e.key[:60])
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / n
+    return sum(e.self_device_time_total for e in kernels) / n
 
 
 def _f64_error(h, w, b, k: int):
@@ -264,17 +320,23 @@ def main(argv=None) -> None:
     }
     from dlsg_tpu_torch.ops.quant import quantize_weight
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     qmm_reference = {}
     calls[qmatmul.LIBRARY] = []
     for name, K, N in QMATMUL_SHAPES:
         qx = torch.tanh(torch.randn(640, K, generator=g)).cuda()
         qw = quantize_weight((torch.randn(K, N, generator=g) / K**0.5).cuda())
         label = f"qmatmul {name} x [640,{K}] fp32, qt [{N},{qmatmul.padded_k(K)}] int8"
-        calls[qmatmul.LIBRARY].append(
-            (label, lambda qx=qx, qw=qw: qmatmul.qmatmul(qx, *qw), 20, lambda n: True, None))
+        call = lambda qx=qx, qw=qw: WRAPPERS[qmatmul.LIBRARY].qmatmul(qx, *qw)  # noqa: E731
+        calls[qmatmul.LIBRARY].append((label, call, 20, lambda n: True, None))
+        library = lambda qx=qx, qw=qw: int_mm_library(qx, qw)  # noqa: E731
+        plan = qmatmul.qmatmul_plan(640, K, N, n_sm)
         qmm_reference[label] = {
             "bound_us": qmatmul_bound_us(640, K, N),
-            "library_us": _us_per_call(lambda qx=qx, qw=qw: int_mm_library(qx, qw), 20),
+            "library_us": _us_per_call(library, 20),
+            "library_device_us": device_us_per_call(library, 20),
+            "plan": {"block_n": plan.block_n, "blocks": plan.blocks, "tiles": list(plan.tiles)},
+            "device_us_by_block_n": _by_block_n(call),
         }
     if args.against is not None:
         decode = _decode_calls()
@@ -284,22 +346,50 @@ def main(argv=None) -> None:
         calls[vocab_head.LIBRARY].append(
             (label + " off", decode["fused_off"], 3, lambda n: n == "whole", None))
     saved = {lib: lib.load() for lib in VARIANTS}
-    result, errors = {}, {}
+    own = dict(WRAPPERS)
+    against_mods = _against_wrappers(args.against)
+    result, device, kernel_us, errors = {}, {}, {}, {}
     for _ in range(2):
         for (lib, name), so in builds.items():
-            _bind(lib, so)
+            mod = against_mods.get(lib) if name == "against" else None
+            if mod is not None:  # the other checkout's wrapper binds its own build
+                WRAPPERS[lib] = mod
+                _bind(mod.LIBRARY, so)
+            else:
+                _bind(lib, so)
             try:
                 for label, fn, n, times, error in calls[lib]:
                     if not times(name):
                         continue
                     result.setdefault(label, {}).setdefault(name, []).append(_us_per_call(fn, n))
+                    if lib is qmatmul.LIBRARY:
+                        split = kernel_us.setdefault(label, {}).setdefault(name, {})
+                        device.setdefault(label, {}).setdefault(name, []).append(
+                            device_us_per_call(fn, n, split))
                     if error is not None:
                         errors.setdefault(label, {})[name] = error()
             finally:  # the other library runs its own build (the decode runs both)
                 lib._lib = saved[lib]
+                WRAPPERS[lib] = own[lib]
     print(json.dumps({"device": torch.cuda.get_device_name(0), "us_per_call": result,
+                      "device_us_per_call": device, "device_us_by_kernel_two_runs": kernel_us,
                       "max_abs_err_vs_float64": errors, "qmatmul_bound_and_library": qmm_reference,
                       "registers": registers}), flush=True)
+
+
+def _by_block_n(call) -> dict:
+    """Device microseconds of a qmatmul call at each tile width of the
+    plan's choice (qmatmul_plan with block_n forced), the built kernel."""
+    chosen = qmatmul.qmatmul_plan
+    out = {}
+    try:
+        for bn in qmatmul.BLOCK_NS:
+            qmatmul.qmatmul_plan = lambda G, K, N, n_sm=qmatmul.N_SM, bn=bn: chosen(  # noqa: E731
+                G, K, N, n_sm, block_n=bn)
+            out[bn] = device_us_per_call(call, 20)
+    finally:
+        qmatmul.qmatmul_plan = chosen
+    return out
 
 
 if __name__ == "__main__":

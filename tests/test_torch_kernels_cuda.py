@@ -18,8 +18,9 @@ each tensor's max-abs) against the CPU. The trainer's prefetcher (pinned
 host slots, side-stream copies) must deliver every batch bitwise. The
 two-pass decode (fp32, both kernels) gives the single pass's token ids.
 The int8 product (qmatmul) is exact in its integer part and correctly
-rounded elsewhere, so it equals its plain version bitwise, and the int8
-decode on the card gives the CPU's token ids."""
+rounded elsewhere, so it equals its plain version bitwise (NaN where the
+plain version has NaN), and the int8 decode on the card gives the CPU's
+token ids."""
 
 from dataclasses import replace
 
@@ -31,7 +32,7 @@ from dlsg_tpu_torch.config import tiny_test_config
 from dlsg_tpu_torch.evaluation.decode import _make_beam_from_feats, make_decode_fn
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB
 from dlsg_tpu_torch.kernels.qmatmul import LIBRARY as QMM_LIB
-from dlsg_tpu_torch.kernels.qmatmul import K_ALIGN
+from dlsg_tpu_torch.kernels.qmatmul import BLOCK_NS, K_ALIGN, qmatmul_plan
 from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain, lstm_scan_plan, max_hidden
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB
 from dlsg_tpu_torch.kernels.vocab_head import (
@@ -260,7 +261,10 @@ def test_qmatmul_wrapper_refusals_and_constants(card):
     qw = quantize_weight(torch.ones(40, 8, device=card))
     x = torch.ones(3, 40, device=card)
     assert QMM_LIB.load().qmatmul_k_align() == K_ALIGN
-    assert QMM_LIB.load().qmatmul_smem_bytes() <= 232_448
+    for block_n in BLOCK_NS:
+        plan = qmatmul_plan(640, 2860, 4096, _n_sm(card), block_n=block_n)
+        assert QMM_LIB.load().qmatmul_smem_bytes(block_n) == plan.smem_bytes <= 232_448
+    assert QMM_LIB.load().qmatmul_smem_bytes(80) == -1
     with pytest.raises(NotImplementedError):
         qmatmul(x.requires_grad_(), *qw)
     x = x.detach()
@@ -273,6 +277,86 @@ def test_qmatmul_wrapper_refusals_and_constants(card):
         qmatmul(x, qw.qt.t().contiguous().t(), qw.s)  # not contiguous
     with pytest.raises(ValueError):
         qmatmul(x, qw.qt.cpu(), qw.s)  # devices differ
+
+
+def _qmatmul_equals_plain(x, qw):
+    before = QMM_LIB.launches
+    got = qmatmul(x, *qw)
+    torch.cuda.synchronize()
+    assert QMM_LIB.launches == before + 1
+    want = qmatmul_plain(x, *qw)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    return got
+
+
+@pytest.mark.parametrize(
+    "G,N,waves",
+    [(640, 4096, "below"),  # 130 tiles of 128 x 160
+     (128, 8448, "at"),  # 132 tiles of 128 x 64
+     (640, 10000, "above")],  # 395 tiles of 128 x 128 over 132 blocks
+)
+@pytest.mark.parametrize("K", [1536, 2860, 9000])  # a multiple of 128, not, a long row
+def test_qmatmul_persistent_walk(card, G, N, waves, K):
+    """Tile counts below, at and above the SM count (each block walks
+    several tiles above it), K a multiple of the 128-byte stage and not,
+    and rows longer than the quantize launch keeps in registers (8192)."""
+    n_sm = _n_sm(card)
+    plan = qmatmul_plan(G, K, N, n_sm)
+    tiles = plan.tiles[0] * plan.tiles[1]
+    assert {"below": tiles < n_sm, "at": tiles == n_sm, "above": tiles > n_sm}[waves]
+    assert plan.blocks == min(tiles, n_sm)
+    x = _rand(G, K, seed=G + K).to(card)
+    _qmatmul_equals_plain(x, quantize_weight((_rand(K, N, seed=N) / K**0.5).to(card)))
+
+
+def test_qmatmul_nan_and_zero_rows(card):
+    """A row holding a NaN gives a NaN row (its scale is NaN, as torch's
+    amax keeps it); an all-zero row gives zeros (scale floor 1e-12)."""
+    x = _rand(130, 2860, seed=3).to(card)
+    x[5, 17] = float("nan")
+    x[64] = 0.0
+    x[129] = float("nan")
+    got = _qmatmul_equals_plain(x, quantize_weight((_rand(2860, 300, seed=4) / 53).to(card)))
+    assert bool(got[5].isnan().all()) and bool(got[129].isnan().all())
+    assert bool((got[64] == 0).all()) and not bool(got[[0, 63, 65, 128]].isnan().any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qmatmul_reads_rows_as_they_are(card, dtype):
+    """fp32 and bf16 x go into the quantize launch without a cast (bf16
+    widened exactly there), in 16-byte loads or one by one: 16-byte aligned
+    or not, K a multiple of the 16-byte width or not."""
+    for K in (2860, 37):
+        qw = quantize_weight(_rand(K, 200, seed=K).to(card))
+        x = _rand(65, K, seed=5).to(card).to(dtype)
+        _qmatmul_equals_plain(x, qw)
+        off = torch.empty(65 * K + 1, device=card, dtype=dtype)[1:].view(65, K)
+        off.copy_(x)  # contiguous, one element off 16-byte alignment
+        _qmatmul_equals_plain(off, qw)
+
+
+def test_qmatmul_weight_maps_are_cached_by_address(card):
+    """One TMA map per (pointer, N, Kp): reused on the next call, reused
+    when the weight is re-quantized in place (the map holds no data), a new
+    one for a weight at another address."""
+    from dlsg_tpu_torch.kernels import qmatmul as qmm
+
+    x = _rand(640, 1536, seed=6).to(card)
+    qw = quantize_weight((_rand(1536, 4096, seed=7) / 40).to(card))
+    _qmatmul_equals_plain(x, qw)
+    key = (qw.qt.data_ptr(), 4096, 1536)
+    first = qmm.WEIGHT_MAPS[key]
+    _qmatmul_equals_plain(x, qw)
+    assert qmm.WEIGHT_MAPS[key] is first
+    other = quantize_weight((_rand(1536, 4096, seed=8) / 40).to(card))
+    qw.qt.copy_(other.qt)
+    qw.s.copy_(other.s)
+    got = _qmatmul_equals_plain(x, qw)
+    assert qmm.WEIGHT_MAPS[key] is first
+    assert torch.equal(got, qmatmul_plain(x, *other))
+    _qmatmul_equals_plain(x, other)
+    assert qmm.WEIGHT_MAPS[(other.qt.data_ptr(), 4096, 1536)] is not first
 
 
 @pytest.mark.parametrize("fused", ["off", "on"])

@@ -33,6 +33,15 @@ port over two ranks 1.84e-4 (att_norm_dense.weight); uneven case JAX
 1.61e-4, port 1.88e-4. JAX against the port: up to 2.01e-4 (conv1d.weight,
 even), which the former 1e-4 refused on some machines and not on others.
 G's moments (one update) lie within 6.6e-6 of float64 in both packages.
+
+The ratio check ("the port no more than twice as far as JAX") has a floor,
+RATIO_FLOOR = 1e-5, check_state's parameter tolerance: below it both
+distances are fp32 rounding and their ratio says nothing. G's moments lie
+there: 3.1e-6 (JAX) against 6.8e-6 (port) failed `port <= 2 * jax` on one
+run of the whole suite (uneven case) and passed on the next with the same
+code, since which package lands nearer depends on the summation order of
+the machine and its thread count. D's distances (1.6-2.0e-4) stay held by
+the ratio as before.
 """
 
 import os
@@ -68,6 +77,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "helpers", "torch_dp_worker.py")
 WORLD = 2
 D_MOMENT_TOL = 1e-4 * jax_tiny().num_D_visual  # module doc
+RATIO_FLOOR = 1e-5  # module doc: below it a distance from float64 is fp32 rounding
 LENGTHS = {"even": [3, 9, 5, 2, 9, 2, 5, 3], "uneven": [9, 9, 8, 9, 2, 2, 3, 2]}
 
 
@@ -225,15 +235,16 @@ def _worst_share(mu, ref) -> float:
 def test_both_packages_lie_equally_far_from_a_float64_step(steps, case):
     """The evidence for D's moment tolerance (module doc): JAX's fp32 step
     and the port's over two ranks each lie within it of the float64 step,
-    and the port no more than twice as far as JAX; G's moments within the
-    1e-4 that check_state holds them to."""
+    and the port no more than twice as far as JAX (or than RATIO_FLOOR,
+    where both are rounding); G's moments within the 1e-4 that check_state
+    holds them to."""
     want, got, _, f64 = steps
     ref = f64[f"gan_{case}"]
     for part, tol in (("g_mu", 1e-4), ("d_mu", D_MOMENT_TOL)):
         jax_far = _worst_share(want[f"gan_{case}"][part], ref[part])
         port_far = _worst_share(got[0][f"gan_{case}"][part], ref[part])
         assert max(jax_far, port_far) <= tol, (part, jax_far, port_far)
-        assert port_far <= 2 * jax_far, (part, jax_far, port_far)
+        assert port_far <= 2 * max(jax_far, RATIO_FLOOR), (part, jax_far, port_far)
 
 
 @pytest.mark.parametrize("rank", [0, 1])

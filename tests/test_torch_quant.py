@@ -32,6 +32,7 @@ from dlsg_tpu_torch.evaluation.decode import _make_beam_from_feats, make_decode_
 from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.ops import quant as quant_mod
 from dlsg_tpu_torch.ops.quant import (
+    INV_QMAX,
     QuantWeight,
     padded_k,
     qmatmul,
@@ -118,6 +119,42 @@ def test_qmatmul_accuracy():
     rel = np.abs(out - ref) / (np.abs(ref).mean() + 1e-9)
     assert rel.mean() < 0.02, rel.mean()
     assert rel.max() < 0.2, rel.max()
+
+
+def _kernel_quotient(x: np.ndarray, scale: np.float32):
+    """csrc/qmatmul.cu's store16 in numpy fp32: (rint(x * r), where that is
+    taken) with r = 1 / scale rounded; taken where x * r lies farther than
+    |x * r| 2^-21 from a half-integer."""
+    r = np.float32(1) / scale
+    p = x * r
+    q = np.rint(p)
+    return q, (np.float32(0.5) - np.abs(p - q)) > np.abs(p) * np.float32(2.0**-21)
+
+
+def test_the_kernels_reciprocal_quotient_rounds_as_the_division():
+    """The quantize kernel rounds x * (1 / scale) where it provably rounds
+    as x / scale does (store16's argument) and divides elsewhere: on the
+    decoder's values and on values a few ulps from every rounding boundary
+    the product, where taken, gives the IEEE quotient's integer, and it is
+    taken for all but a sliver of ordinary values."""
+    rng = np.random.default_rng(0)
+    x = np.tanh(rng.normal(size=(64, 4608))).astype(np.float32)
+    scale = (np.abs(x).max(axis=1) * np.float32(INV_QMAX)).astype(np.float32)
+    taken_total = 0
+    for row, s in zip(x, scale):
+        q, taken = _kernel_quotient(row, s)
+        assert np.array_equal(q[taken], np.rint(row / s)[taken])
+        taken_total += int(taken.sum())
+    assert taken_total > 0.999 * x.size
+    for s in (np.float32(0.00787), np.float32(1e-12), np.float32(3.1e5)):
+        halves = (np.arange(-127, 127, dtype=np.float32) + np.float32(0.5)) * s
+        near = np.concatenate([np.nextafter(halves, np.float32(d) * np.inf) for d in (-1, 1)]
+                              + [halves])
+        for _ in range(3):  # a few ulps further each time
+            q, taken = _kernel_quotient(near, s)
+            assert np.array_equal(q[taken], np.rint(near / s)[taken])
+            near = np.concatenate([np.nextafter(near, np.float32(-np.inf)),
+                                   np.nextafter(near, np.float32(np.inf))])
 
 
 def test_quantize_round_trip_bound():
