@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive dlsg_tpu_torch's beam-5 serving path (the Captioner, the two-pass
 decode, the HTTP server, the int8 decode, `cli serve`/`export`), the
-evidence that its training learns, its GAN train step, its trainer, its
-baseline generators and their CE trainers, its C++ scorer, its data
-parallelism and its model axis on one NVIDIA GPU.
+evidence that its training learns, its GAN train step with and without
+remat, its graph-variant encoders, its trainer, its baseline generators and
+their CE trainers, its C++ scorer, its data parallelism and its model axis
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -96,6 +97,30 @@ line per phase:
    mixing weights fixed, must give the same Adam first moments, at fp32 and
    at bf16 compute (its own line, `train_card_vs_cpu`). It also records whether `torch.mm(..., out_dtype=)`
    carries a gradient (ops/linear.py's `_MatmulF32` exists for that);
+5a. remat (ops/remat.py): the train phase's config, weights, batch and
+   seeds (dropout 0.3 on) under each (decoder_remat, disc_remat) of (none,
+   none), (dots, none), (full, none), (none, dots), (none, full), each
+   from the same start weights: the GAN step's ms (median of 3 after a
+   warm-up, CUDA events) and peak memory, and the same for the CE step on
+   the decoder_remat rows. The first GAN step's and CE step's metrics,
+   parameters and Adam first moments of each row must lie within
+   MOMENT_TOL bf16 of each tensor's max-abs from the (none, none) row's,
+   and, from one fp32 run of every row at batch 32, within MOMENT_TOL
+   fp32; `full` must lower the GAN step's peak below none's, for the
+   decoder and for D; no kernel launches;
+5b. graph_variants (models/graph_variants.py, which no trainer runs):
+   LatentGNN, GNN, GraphAttentionLayer, EncoderVisualGraph and
+   EncoderVisualGAT at MSR-VTT widths in fp32 (frames [128, 26, 2560],
+   regions [128, 26, 36, 2048], hidden 1024, 5 proposals; GNN over the 936
+   regions of a clip, 2048 -> 1024), seeded weights and running
+   statistics: each one's eval forward ms, train-mode forward + backward
+   ms (running statistics updated) and its peak memory; then the same
+   modules on the CPU with the same weights on the first 4 clips: the
+   card's eval rows 0-3, and a train-mode batch of those 4 clips on both
+   devices (output and updated running statistics), within 1e-4 of each
+   CPU tensor's max-abs; GNN (one forward in either mode) within 1e-3 of
+   a float64 product's max-abs (GV_GNN_TOL says why), its card-vs-CPU
+   share recorded beside; no kernel launches;
 6. trainer: `RunGAN` at MSR-VTT widths (bf16 compute, the fused vocab head
    on, 10 000 words, 128 synthetic videos with 2 captions each: 2 GAN steps
    of batch 128 and 2 beam-5 evals of the 128 clips an epoch, checkpoints
@@ -191,11 +216,12 @@ line per phase:
    16-clip .npz request through the leader's CaptionServer, the other rank
    following, which must answer caption()'s captions and stop the
    follower;
-7. the `kernels` line (times, bounds, launches on each path: serving,
-   two_pass, server, int8, learning, trainer, baselines, cli_serve,
-   data_parallel, model_axis; K2 and K1's tensor-core form must launch on
-   the baselines path, qmatmul on the int8 and learning paths), the
-   nvidia-smi line, and as the last line
+7. a `timing` line (each phase's seconds and the script's), the
+   `kernels` line (times, bounds, launches on each path: serving,
+   two_pass, server, int8, learning, train, remat, graph_variants,
+   trainer, baselines, cli_serve, data_parallel, model_axis; K2 and K1's
+   tensor-core form must launch on the baselines path, qmatmul on the int8
+   and learning paths), the nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -345,6 +371,23 @@ DP_FLAGS = ["--dataset", "msr-vtt", "--compute_dtype", "bfloat16", "--use_fused_
             "--train_batch_size", "64", "--test_batch_size", "64", "--epoch_num", "1", "--no_debug"]
 DP_RANK_BATCH = 64
 DP_TIMEOUT = 600  # seconds, each torchrun or cli process
+# the remat phase: every (decoder_remat, disc_remat) row, held to the first;
+# the fp32 check runs at this batch
+REMAT_POLICIES = (("none", "none"), ("dots", "none"), ("full", "none"),
+                  ("none", "dots"), ("none", "full"))
+REMAT_FP32_BATCH = 32
+# the graph_variants phase: the card's B = 128 outputs against the CPU's on
+# the first clips (the CPU cannot run B = 128 of GNN in a phase's time),
+# within GV_TOL of each CPU tensor's max-abs. GNN's output against a float64
+# product instead, within GV_GNN_TOL of its max-abs: its q.k logits are
+# unscaled (std ~45 here) and each is two fp32 sums of 2048 unit-scale
+# products, so any fp32 evaluation moves the tail of its 3.5 million logits
+# by ~5e-5 and the peaked softmax carries ~2x that into the output: ~1e-4 of
+# max-abs, which the card reaches (1.12e-4; the CPU 3.0e-5, H100 80GB HBM3,
+# 700.00 W). A wrong module is off by order 1.
+GV_CPU_CLIPS = 4
+GV_TOL = 1e-4
+GV_GNN_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -946,6 +989,288 @@ def phase_train(cfg: DLSGConfig) -> dict:
     emit({"phase": "train_card_vs_cpu", "lr": MOMENT_CHECK_LR,
           "fp32": check_train_card_vs_cpu("float32"),
           "bf16": check_train_card_vs_cpu("bfloat16")})
+    return result
+
+
+def _timed_steps(step, n: int = 4) -> list:
+    """CUDA-event ms of `n` calls of `step()`: the first is the warm-up."""
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def remat_run(cfg: DLSGConfig, start: dict, batch: dict, policy, timed: bool) -> dict:
+    """One (decoder_remat, disc_remat) row from the `start` weights: the
+    first GAN step's metrics, parameters and Adam first moments (and the
+    same of a first CE step when disc_remat is none); with `timed` three
+    more steps of each, their ms and each step's peak memory."""
+    pcfg = replace(cfg, decoder_remat=policy[0], disc_remat=policy[1])
+    G = CapGnnModel(pcfg, VOCAB, device=DEVICE)
+    D = DiscV2(pcfg, VOCAB, device=DEVICE)
+    G.load_state_dict(start["G"])
+    D.load_state_dict(start["D"])
+    gs = TrainState.create(G, make_optimizer(TRAIN_LR))
+    ds = TrainState.create(D, make_optimizer(TRAIN_LR))
+    lstate = init_lambda_state(LAMBDA0, device=DEVICE)
+    gan_step = make_gan_train_step(G, D, pcfg)
+    out = {}
+
+    def state(tag, state_g, state_d=None):
+        """Parameters and first moments, on the host (so that no row's
+        copies sit in a later row's peak)."""
+        parts = [("G", G.state_dict()), ("G.mu", state_g.first_moments())]
+        if state_d is not None:
+            parts += [("D", D.state_dict()), ("D.mu", state_d.first_moments())]
+        return {f"{tag}.{part}.{k}": v.detach().to("cpu", torch.float32, copy=True)
+                for part, tensors in parts for k, v in tensors.items()}
+
+    metrics = []
+
+    def one_gan():
+        nonlocal gs, ds, lstate
+        gs, ds, lstate, m = gan_step(gs, ds, lstate, batch, TRAIN_KEY, SS_EPSILON)
+        metrics.append(m)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = _timed_steps(one_gan, 1)
+    first = metrics[0]
+    out["tensors"] = state("gan", gs, ds)
+    out["metrics"] = {f"gan.{k}": float(v) for k, v in _finite_metrics(first).items()}
+    if timed:
+        ms += _timed_steps(one_gan, 3)
+        out["gan_ms"] = ms[1:]
+        out["peak_gb_gan"] = torch.cuda.max_memory_allocated() / 1e9
+    if policy[1] == "none":
+        G.load_state_dict(start["G"])
+        ce_step = make_ce_train_step(G, pcfg)
+        cs = TrainState.create(G, make_optimizer(TRAIN_LR))
+        ce_metrics = []
+
+        def one_ce():
+            nonlocal cs
+            cs, m = ce_step(cs, batch, TRAIN_KEY, SS_EPSILON)
+            ce_metrics.append(m)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = _timed_steps(one_ce, 1)
+        out["tensors"].update(state("ce", cs))
+        out["metrics"]["ce.cap_loss"] = float(ce_metrics[0]["cap_loss"])
+        if timed:
+            ms += _timed_steps(one_ce, 3)
+            out["ce_ms"] = ms[1:]
+            out["peak_gb_ce"] = torch.cuda.max_memory_allocated() / 1e9
+    del G, D, gs, ds, gan_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_to_none(rows: dict, tol: float, what: str) -> dict:
+    """Each row's metrics and tensors against the (none, none) row's: the
+    largest difference as a share of the reference tensor's max-abs (of
+    the metric's magnitude, at least 1), which must stay within `tol`."""
+    want = rows[("none", "none")]
+    worst = {}
+    for policy, got in rows.items():
+        if policy == ("none", "none"):
+            continue
+        shares = []
+        for k, v in got["metrics"].items():
+            shares.append(abs(v - want["metrics"][k]) / max(abs(want["metrics"][k]), 1.0))
+        for k, v in got["tensors"].items():
+            ref = want["tensors"][k]
+            scale = float(ref.abs().max())
+            shares.append(float((v - ref).abs().max()) / scale if scale else float(v.abs().max()))
+        worst["/".join(policy)] = max(shares)
+    bad = {k: v for k, v in worst.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{what}: remat rows differ from (none, none) beyond {tol}: {bad}")
+    return {"worst_share_of_max_abs": worst, "tolerance": tol}
+
+
+def phase_remat(cfg: DLSGConfig) -> dict:
+    """The GAN and CE train steps under each remat policy (module doc,
+    item 5a)."""
+    gen = torch.Generator().manual_seed(SEED)
+    start = {"G": CapGnnModel(cfg, VOCAB, generator=gen, device=DEVICE).state_dict(),
+             "D": DiscV2(cfg, VOCAB, generator=gen, device=DEVICE).state_dict()}
+    batch = train_batch(cfg, BATCH, VOCAB, SEED + 5, DEVICE)
+
+    # ---- the main path, with every kernel's launch count read over it ----
+    reset_launches()
+    rows = {policy: remat_run(cfg, start, batch, policy, timed=True)
+            for policy in REMAT_POLICIES}
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the remat path launched a kernel: {launches}")
+    bf16 = compare_to_none(rows, MOMENT_TOL["bfloat16"], "bf16, B = 128")
+    base = rows[("none", "none")]["peak_gb_gan"]
+    for policy in (("full", "none"), ("none", "full")):
+        if not rows[policy]["peak_gb_gan"] < base:
+            raise AssertionError(f"remat {policy} did not lower the GAN step's peak: "
+                                 f"{rows[policy]['peak_gb_gan']} GB against {base} GB")
+    del start, batch
+    torch.cuda.empty_cache()
+
+    f32 = replace(cfg, compute_dtype="float32")
+    gen = torch.Generator().manual_seed(SEED)
+    start = {"G": CapGnnModel(f32, VOCAB, generator=gen, device=DEVICE).state_dict(),
+             "D": DiscV2(f32, VOCAB, generator=gen, device=DEVICE).state_dict()}
+    batch = train_batch(f32, REMAT_FP32_BATCH, VOCAB, SEED + 5, DEVICE)
+    fp32 = compare_to_none({p: remat_run(f32, start, batch, p, timed=False)
+                            for p in REMAT_POLICIES},
+                           MOMENT_TOL["float32"], f"fp32, B = {REMAT_FP32_BATCH}")
+    table = [{"decoder_remat": p[0], "disc_remat": p[1],
+              "gan_step_ms": float(np.median(r["gan_ms"])), "gan_ms_all": r["gan_ms"],
+              "peak_gb_gan": r["peak_gb_gan"],
+              **({"ce_step_ms": float(np.median(r["ce_ms"])), "ce_ms_all": r["ce_ms"],
+                  "peak_gb_ce": r["peak_gb_ce"]} if "ce_ms" in r else {})}
+             for p, r in rows.items()]
+    result = {"phase": "remat", "config": "msr-vtt, bf16, dropout 0.3, train phase's seeds",
+              "vocab": VOCAB, "batch": BATCH, "launches": launches, "rows": table,
+              "check_bf16": bf16, "check_fp32": fp32}
+    emit(result)
+    return result
+
+
+def _gv_modules(cfg: DLSGConfig, device) -> dict:
+    """The five graph modules at MSR-VTT widths, fp32, seeded weights and
+    seeded running statistics (so that eval mode uses them)."""
+    from dlsg_tpu_torch.models import graph_variants as gv
+
+    vh, P = cfg.visual_hidden_size, cfg.num_proposals
+    mods = {
+        "LatentGNN": gv.LatentGNN(vh, P, generator=torch.Generator().manual_seed(SEED),
+                                  device=device),
+        "GNN": gv.GNN(cfg.region_feature_size, vh,
+                      generator=torch.Generator().manual_seed(SEED), device=device),
+        "GraphAttentionLayer": gv.GraphAttentionLayer(
+            vh, vh, cfg.dropout, generator=torch.Generator().manual_seed(SEED), device=device),
+        "EncoderVisualGraph": gv.EncoderVisualGraph(cfg, device=device),
+        "EncoderVisualGAT": gv.EncoderVisualGAT(cfg, device=device),
+    }
+    rng = np.random.default_rng(SEED)
+    for mod in mods.values():
+        for name, buf in mod.named_buffers():
+            vals = (rng.uniform(0.5, 2.0, size=buf.shape) if name.endswith("running_var")
+                    else rng.normal(size=buf.shape) * 0.1)
+            buf.copy_(torch.from_numpy(vals.astype(np.float32)))
+    return mods
+
+
+def _gv_inputs(cfg: DLSGConfig, n: int, device) -> dict:
+    """Each module's inputs for n clips: frames [n, 26, 2560], regions
+    [n, 26, 36, 2048], frame-wide features [n, 26, H] and object-wide
+    [n, 26 * 36, H]."""
+    frames, regions = (torch.as_tensor(a, device=device) for a in features(n, cfg, SEED + 9))
+    rng = np.random.default_rng(SEED + 10)
+    T, O, H = cfg.max_frames, cfg.num_obj, cfg.visual_hidden_size
+    frame_h = torch.as_tensor(rng.normal(size=(n, T, H)).astype(np.float32), device=device)
+    obj_h = torch.as_tensor(rng.normal(size=(n, T * O, H)).astype(np.float32), device=device)
+    return {"LatentGNN": (frame_h,), "GNN": (regions,), "GraphAttentionLayer": (obj_h, frame_h),
+            "EncoderVisualGraph": (frames, regions), "EncoderVisualGAT": (frames, regions)}
+
+
+def _share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| as a share of want's max-abs (compare_card_vs_cpu's
+    measure)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return diff / scale if scale else diff
+
+
+def gnn_against_float64(cpu_gnn, regions: torch.Tensor, cpu_out: torch.Tensor,
+                        card_out: torch.Tensor) -> dict:
+    """GNN's card and CPU fp32 outputs against its float64 product on the
+    CPU, as shares of its max-abs: the card's must stay within GV_GNN_TOL
+    (its definition says why)."""
+    B, T, O, Fs = regions.shape
+    f = regions.reshape(B, T * O, Fs).double()
+    lin = lambda d, a: a @ d.weight.double().t() + d.bias.double()  # noqa: E731
+    adj = torch.softmax(lin(cpu_gnn.adj_Q, f) @ lin(cpu_gnn.adj_K, f).transpose(1, 2), dim=-1)
+    ref = (adj @ lin(cpu_gnn.graph_update, f)).reshape(B, T, O, -1)
+    card, cpu = _share(card_out.double(), ref), _share(cpu_out.double(), ref)
+    if not card <= GV_GNN_TOL:
+        raise AssertionError(f"GNN on the card is {card} of max-abs from float64 "
+                             f"(the CPU's fp32 {cpu}): beyond {GV_GNN_TOL}")
+    return {"card_vs_float64": card, "cpu_vs_float64": cpu, "float64_tolerance": GV_GNN_TOL}
+
+
+def phase_graph_variants() -> dict:
+    """The five graph modules at MSR-VTT widths (module doc, item 5b)."""
+    cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt"))
+    mods = _gv_modules(cfg, DEVICE)
+    cpu_mods = _gv_modules(cfg, "cpu")
+    for name, mod in mods.items():
+        cpu_mods[name].load_state_dict(mod.state_dict())
+    inputs = _gv_inputs(cfg, BATCH, DEVICE)
+
+    # ---- the main path, with every kernel's launch count read over it ----
+    reset_launches()
+    rows, outs = [], {}
+    for name, mod in mods.items():
+        args = inputs[name]
+        mod.eval()
+        with torch.no_grad():
+            outs[name] = mod(*args)
+            if not torch.isfinite(outs[name]).all():
+                raise AssertionError(f"{name}: non-finite eval output")
+            eval_ms = time_ms(lambda: mod(*args), repeats=5, warmup=1)
+        mod.train()
+        stats = {k: v.clone() for k, v in mod.named_buffers()}
+
+        def train_step():
+            out = mod(*args)
+            (out.float() ** 2).mean().backward()
+
+        torch.cuda.reset_peak_memory_stats()
+        train_ms = time_ms(train_step, repeats=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for k, v in mod.named_buffers():  # restore the seeded statistics
+            v.copy_(stats[k])
+        mod.zero_grad(set_to_none=True)
+        rows.append({"module": name, "input_shapes": [list(a.shape) for a in args],
+                     "output_shape": list(outs[name].shape), "eval_ms": eval_ms,
+                     "train_fwd_bwd_ms": train_ms, "peak_gb_train": peak})
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the graph_variants path launched a kernel: {launches}")
+
+    n = GV_CPU_CLIPS
+    cpu_inputs = {k: tuple(a[:n].cpu() for a in v) for k, v in inputs.items()}
+    checks = {}
+    for (name, mod), row in zip(mods.items(), rows):
+        cmod = cpu_mods[name]
+        cmod.eval()
+        with torch.no_grad():
+            eval_diff = _share(outs[name][:n], cmod(*cpu_inputs[name]))
+        # train mode: the first n clips as their own batch on both devices
+        mod.train()
+        cmod.train()
+        with torch.no_grad():
+            card_out = mod(*(a[:n] for a in inputs[name]))
+            cpu_out = cmod(*cpu_inputs[name])
+        train_diff = _share(card_out, cpu_out)
+        stats_diff = max([_share(a, b) for a, b in zip(mod.buffers(), cmod.buffers())],
+                         default=0.0)
+        checks[name] = {"eval": eval_diff, "train": train_diff, "running_stats": stats_diff,
+                        "batch_stats": len(list(mod.buffers())) // 2}
+        if name == "GNN":  # no mode of its own: eval and train are one forward
+            checks[name].update(gnn_against_float64(cmod, cpu_inputs[name][0], cpu_out,
+                                                    outs[name][:n]))
+        elif not max(eval_diff, train_diff, stats_diff) <= GV_TOL:
+            raise AssertionError(f"{name}: card against CPU beyond {GV_TOL}: {checks[name]}")
+    result = {"phase": "graph_variants", "config": "msr-vtt, fp32", "batch": BATCH,
+              "launches": launches, "rows": rows, "card_vs_cpu_share_of_max_abs": checks,
+              "cpu_clips": n, "tolerance": GV_TOL}
+    emit(result)
     return result
 
 
@@ -2621,14 +2946,24 @@ def phase_model_axis() -> dict:
 
 
 def main() -> None:
+    t_main = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
     info = phase_device()
-    scorer_build_s = phase_build()
+    scorer_build_s = timed("build", phase_build)
     cfg = apply_dataset_overrides(
         DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
                    use_pallas_lstm=True, use_fused_vocab_head="on")
     )
     # (key of the serving phase's launch counts, kernels line entry); the
     # fp32-w TF32x3 tiles are off the bf16 serving path and count 0 there
+    t = time.perf_counter()
     checks = [
         ("lstm_scan", check_lstm_scan(cfg)),
         ("vocab_head[tensor_cores]", check_vocab_head(cfg, torch.bfloat16)),
@@ -2636,37 +2971,45 @@ def main() -> None:
     ]
     vocab, params = serving_model(cfg)
     checks.append(("qmatmul", check_qmatmul(cfg, params)))
+    seconds["kernel_checks"] = time.perf_counter() - t
     torch.cuda.empty_cache()
-    launches = {"launches": phase_serving(cfg, vocab, params)["launches"]}
+    launches = {"launches": timed("serving", phase_serving, cfg, vocab, params)["launches"]}
     torch.cuda.empty_cache()
-    launches["launches_two_pass"] = phase_two_pass(cfg, params)["launches"]
+    launches["launches_two_pass"] = timed("two_pass", phase_two_pass, cfg, params)["launches"]
     torch.cuda.empty_cache()
-    launches["launches_server"] = phase_server(cfg, vocab, params)["launches"]
+    launches["launches_server"] = timed("server", phase_server, cfg, vocab, params)["launches"]
     torch.cuda.empty_cache()
-    launches["launches_int8"] = phase_int8(cfg, params)["launches"]
+    launches["launches_int8"] = timed("int8", phase_int8, cfg, params)["launches"]
     del params
     torch.cuda.empty_cache()
-    launches["launches_learning"] = phase_learning()["launches"]
+    launches["launches_learning"] = timed("learning", phase_learning)["launches"]
     torch.cuda.empty_cache()
-    phase_train(apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16")))
+    train_cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16"))
+    launches["launches_train"] = timed("train", phase_train, train_cfg)["launches"]
     torch.cuda.empty_cache()
-    trainer, references, captions = phase_trainer(
+    launches["launches_remat"] = timed("remat", phase_remat, train_cfg)["launches"]
+    torch.cuda.empty_cache()
+    launches["launches_graph_variants"] = timed("graph_variants", phase_graph_variants)["launches"]
+    torch.cuda.empty_cache()
+    trainer, references, captions = timed(
+        "trainer", phase_trainer,
         apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
                                            use_fused_vocab_head="on", epoch_num=1)),
         VOCAB, TRAINER_VIDEOS,
     )
     launches["launches_trainer"] = trainer["launches"]
     torch.cuda.empty_cache()
-    launches["launches_baselines"] = phase_baselines()["launches"]
+    launches["launches_baselines"] = timed("baselines", phase_baselines)["launches"]
     torch.cuda.empty_cache()
-    launches["launches_data_parallel"] = phase_data_parallel()["launches"]
-    phase_scorer(references, captions, scorer_build_s)
-    launches["launches_cli_serve"] = phase_cli_serve()["launches"]
+    launches["launches_data_parallel"] = timed("data_parallel", phase_data_parallel)["launches"]
+    timed("scorer", phase_scorer, references, captions, scorer_build_s)
+    launches["launches_cli_serve"] = timed("cli_serve", phase_cli_serve)["launches"]
     torch.cuda.empty_cache()
-    launches["launches_model_axis"] = phase_model_axis()["launches"]
+    launches["launches_model_axis"] = timed("model_axis", phase_model_axis)["launches"]
     for key, entry in checks:
         for path, counts in launches.items():
             entry[path] = counts[key]
+    emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_main})
     emit({"kernels": [entry for _, entry in checks]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})

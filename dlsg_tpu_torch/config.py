@@ -4,8 +4,11 @@ Field names and defaults are identical to the JAX package's, so the config
 JSON inside a serving bundle loads into either package, and so are the
 derived data paths, `checkpoint_dir`, `base_name()` and the CLI flags of
 `parse_opt`. The two dtype properties return torch dtypes instead of jnp
-ones. Fields that select JAX-only machinery (remat, the training RNG) are
-kept so a bundle round-trips, and are ignored by this package.
+ones. `decoder_remat` and `disc_remat` ('none' | 'dots' | 'full') select
+what a train step keeps for its backward: the generator's teacher-forced
+scan and D's grouped real | fake pass (ops/remat.py). `rng_impl` selects
+JAX's PRNG implementation; it is kept so a bundle round-trips, and this
+package ignores it.
 `mesh_data_axis`/`mesh_model_axis` lay the ranks of a process group out as
 a (data, model) mesh (parallel/mesh.py), as they lay out devices in JAX.
 """

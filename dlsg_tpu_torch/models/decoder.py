@@ -48,6 +48,7 @@ from dlsg_tpu_torch.ops import quant as quant_ops
 from dlsg_tpu_torch.ops.linear import LN_EPS, Dense, Dropout, Embed, LayerNorm, matmul_f32
 from dlsg_tpu_torch.ops.lstm import LSTMCell, SplitInputLSTMCell, lstm_gates
 from dlsg_tpu_torch.ops.quant import QuantWeight, quantize_weight
+from dlsg_tpu_torch.ops.remat import remat
 from dlsg_tpu_torch.parallel.dist import copy_to_model, gather_from_model
 from dlsg_tpu_torch.vocab import START_ID
 
@@ -254,7 +255,13 @@ class Decoder(nn.Module):
         training mode with `rng`: one coin per step for the whole batch,
         true with probability `ratio`, drawn up front on the device; the
         step's next word is the gold word where the coin is true, else the
-        argmax of its logits. Otherwise every coin is true."""
+        argmax of its logits. Otherwise every coin is true.
+
+        In training mode each step runs under `cfg.decoder_remat`
+        (ops/remat.py): "dots" keeps only the products' outputs for the
+        backward, "full" only the step's inputs, and the backward computes
+        the rest again with the same dropout masks. The coins stay drawn up
+        front; greedy and beam decoding never rematerialize, as in JAX."""
         T = self.cfg.max_words
         B = feats.shape[0]
         pre = self._precompute(feats, feats2)
@@ -266,14 +273,21 @@ class Decoder(nn.Module):
         else:
             coins = torch.ones(T, dtype=torch.bool, device=feats.device)
         word_id = torch.full((B,), START_ID, dtype=torch.int64, device=feats.device)
+        policy = self.cfg.decoder_remat if self.training else "none"
+        step = remat(self._train_step, policy, rng, module=self)
         logits_all, alphas = [], []
         for t in range(T):
-            word = self.step.word_drop(self.step.word_embed(word_id), rng)
-            logits, qh, qc, lh, lc, alpha = self.step.decode(word, qh, qc, lh, lc, pre, rng)
+            logits, qh, qc, lh, lc, alpha = step(word_id, qh, qc, lh, lc, pre)
             word_id = torch.where(coins[t], gold[:, t], logits.detach().argmax(dim=-1))
             logits_all.append(logits)
             alphas.append(alpha)
         return torch.stack(logits_all, dim=1), torch.stack(alphas, dim=1)
+
+    def _train_step(self, word_id, qh, qc, lh, lc, pre: Pre, rng=None):
+        """One step of the training scan: the word embedding, its dropout
+        and `step.decode` (what JAX's `nn.remat` wraps)."""
+        word = self.step.word_drop(self.step.word_embed(word_id), rng)
+        return self.step.decode(word, qh, qc, lh, lc, pre, rng)
 
     def beam_step(self, word_id, state: State, pre: Pre):
         """One beam step over the flattened group: (raw logits [G, V],

@@ -27,6 +27,7 @@ from dlsg_tpu_torch.ops.linear import (  # noqa: F401
     matmul_f32,
     trunc_normal_fan_,
 )
+from dlsg_tpu_torch.ops.remat import not_a_dot
 
 NEG_FILL = -9e15  # reference mask fill value
 
@@ -179,7 +180,8 @@ class Conv1d(nn.Module):
 
     Computed as one product of the k shifted windows with the kernel, so it
     is exact fp32 on every device (cuDNN would run an fp32 convolution in
-    TF32 by default)."""
+    TF32 by default). Remat's "dots" policy computes it again, as JAX's
+    `dots_saveable` does a convolution (ops/remat.py)."""
 
     def __init__(self, in_features: int, out_features: int, kernel_size: int = 3):
         super().__init__()
@@ -198,7 +200,8 @@ class Conv1d(nn.Module):
         xp = torch.nn.functional.pad(x, (0, 0, left, k - 1 - left))
         cols = torch.cat([xp[:, i : i + T] for i in range(k)], dim=-1)  # [B, T, k*in]
         w = self.weight.permute(2, 1, 0).reshape(k * in_f, out_f)  # flax [k, in, out]
-        return torch.matmul(cols, w) + self.bias
+        with not_a_dot():  # a convolution in JAX: remat "dots" does not keep it
+            return torch.matmul(cols, w) + self.bias
 
 
 class ResBlock(nn.Module):

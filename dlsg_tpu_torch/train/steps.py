@@ -21,6 +21,13 @@ scheduled-sampling coins, the penalty's mixing weights) come from one
 `torch.Generator` on the models' device, seeded from (key, step). The steps
 switch the models to training mode and restore their modes after.
 
+Remat (ops/remat.py): `cfg.decoder_remat` selects what the generator's
+teacher-forced scan keeps for its backward (models/decoder.py), and
+`cfg.disc_remat` what D's grouped real | fake pass of each substep keeps,
+as JAX checkpoints `apply_d2`; the penalty's pass at B, which takes a double
+backward, is never rematerialized. Either way the gradients are the same
+and every random draw is the one it would be without remat.
+
 Data parallelism (parallel/dist.py): on every rank the losses are that
 rank's shares of the global batch's losses (ops/losses.py), each gradient
 list is summed over the ranks before its update (`all_reduce_grads`, one
@@ -51,6 +58,7 @@ from dlsg_tpu_torch.ops.losses import (
     to_onehot,
     wgan_g_loss,
 )
+from dlsg_tpu_torch.ops.remat import remat
 from dlsg_tpu_torch.parallel.dist import all_reduce_grads, global_sum, rank_block_rand
 from dlsg_tpu_torch.train.gan_lambda import LambdaState, lambda_update
 from dlsg_tpu_torch.train.optim import TrainState
@@ -192,6 +200,13 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
             def d_fn(caps):
                 return disc_model(caps, obj, mot, att_mask, alpha, rng=rng)
 
+            # real | fake in one grouped pass, under cfg.disc_remat (the
+            # penalty's pass at B is never rematerialized, as in JAX)
+            d_grouped = remat(
+                lambda caps, rng: disc_model(caps, obj2, mot2, att2, alpha2, groups=2, rng=rng),
+                cfg.disc_remat, rng, module=disc_model,
+            )
+
             d_stats = []
             for i in range(num_d):
                 if eps_gp is None:
@@ -199,7 +214,7 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
                 else:
                     eps = torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev)
                 eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
-                scores = disc_model(real_fake, obj2, mot2, att2, alpha2, groups=2, rng=rng)
+                scores = d_grouped(real_fake)
                 r_loss, f_loss = batch_share(scores[:B]), batch_share(scores[B:])
                 gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
                 loss_d = f_loss - r_loss + GP_WEIGHT * gp

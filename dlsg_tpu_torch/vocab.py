@@ -3,13 +3,15 @@
 Special-token layout `<pad>=0, <start>=1, <end>=2, <unk>=3`, which the
 decoder, beam search and detokenization rely on. Loads the reference's
 pickled vocabularies (`load_reference_pkl`) and the JSON form of either
-package (`save_json` / `load_json`).
+package (`save_json` / `load_json`), or builds one from a reference file
+(`build_from_references`).
 """
 
 from __future__ import annotations
 
 import json
 import pickle
+from collections import Counter
 from typing import Iterable, List
 
 PAD, START, END, UNK = "<pad>", "<start>", "<end>", "<unk>"
@@ -82,6 +84,24 @@ class Vocabulary:
         if not isinstance(obj, cls):
             raise TypeError(f"unsupported vocab pickle payload: {type(obj)!r}")
         return obj
+
+    @classmethod
+    def build_from_references(cls, reference_txt_path: str, min_count: int = 1) -> "Vocabulary":
+        """Build a vocabulary from a `vid\\tsentence` reference file, as
+        `dlsg_tpu.vocab.Vocabulary.build_from_references`: the lines that
+        hold a tab, tokenized with the scorer's PTB tokenizer, punctuation
+        dropped, the words sorted and kept at `count >= min_count`."""
+        from dlsg_tpu_torch.metrics.tokenizer import PUNCTUATIONS, ptb_tokenize_line
+
+        punct = set(PUNCTUATIONS)
+        counts: Counter = Counter()
+        with open(reference_txt_path) as f:
+            for line in f:
+                if "\t" not in line:
+                    continue
+                _, sent = line.split("\t", 1)
+                counts.update(t for t in ptb_tokenize_line(sent.strip()) if t not in punct)
+        return cls.from_words(w for w, c in sorted(counts.items()) if c >= min_count)
 
     def decode_tokens(self, tokens) -> str:
         """Token ids -> caption string, truncating at the first <end>

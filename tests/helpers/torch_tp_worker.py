@@ -13,7 +13,8 @@ Imports dlsg_tpu_torch only (no jax, no dlsg_tpu). Jobs:
   int8 decode's (decode_quant="int8": each rank quantizes its columns of the
   head) first beam-step logits and beam-5 ids with the fused head off and
   on, one GAN step and one CE step (dropout off, epsilon 1, the penalty's
-  mixing weights given), then the same forward and GAN step with dropout on;
+  mixing weights given), then the same forward and GAN step with dropout on,
+  and those steps again with `decoder_remat="full"`;
 - steps: the GAN and CE steps on this data index's rows of the global
   batch, on a (data 2 x model 2) mesh of 4 ranks, a (data 2) mesh of 2, or
   one process without a group;
@@ -164,6 +165,10 @@ def tp_job(in_dir: str) -> dict:
     with torch.no_grad():
         out["logits_dropout"] = g(frames, regions, caps, 0.5, rng=gen)[0].clone()
     out["dropout_step"] = _steps(tiny_test_config(beam_size=BEAM), weights, data, mesh, slice(None))
+    # the same steps with the decoder's scan rematerialized: the recompute
+    # runs the logits all-gather again in the backward
+    out["dropout_step_remat"] = _steps(tiny_test_config(beam_size=BEAM, decoder_remat="full"),
+                                       weights, data, mesh, slice(None))
     return out
 
 

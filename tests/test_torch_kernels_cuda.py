@@ -20,7 +20,10 @@ two-pass decode (fp32, both kernels) gives the single pass's token ids.
 The int8 product (qmatmul) is exact in its integer part and correctly
 rounded elsewhere, so it equals its plain version bitwise (NaN where the
 plain version has NaN), and the int8 decode on the card gives the CPU's
-token ids."""
+token ids. Remat (ops/remat.py) on the card: a generator rebuilt from a
+snapshot draws bitwise the same, remat's gradients equal the unwrapped
+function's bitwise, and a tiny bf16 GAN step under each remat field equals
+the step without (metrics rtol 1e-5, tensors atol 2e-5)."""
 
 from dataclasses import replace
 
@@ -513,3 +516,98 @@ def test_prefetch_to_device_on_the_card(card):
     torch.cuda.synchronize()
     for dev, ref in kept:  # nothing was overwritten by a later batch
         torch.testing.assert_close(dev.cpu(), torch.from_numpy(ref).bfloat16())
+
+
+def test_cuda_generator_snapshot_replays_bitwise(card):
+    """What ops/remat.py's replay rests on, on the card: a generator built
+    on the card from another's `get_state()` (Philox seed and offset) draws
+    bitwise what the other drew from that state, through the dropout draw
+    (`rank_block_rand`), and ends in the same state."""
+    from dlsg_tpu_torch.parallel.dist import rank_block_rand
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    torch.rand(3, generator=gen, device=card)  # a state past the seed's
+    snapshot = gen.get_state()
+    first = [rank_block_rand((7, 1000), gen, card), torch.rand(33, generator=gen, device=card)]
+    local = torch.Generator(device=card)
+    local.set_state(snapshot)
+    again = [rank_block_rand((7, 1000), local, card), torch.rand(33, generator=local, device=card)]
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert torch.equal(local.get_state(), gen.get_state())
+
+
+@pytest.mark.parametrize("policy", ["dots", "full"])
+def test_remat_on_card_equals_the_unwrapped_function(card, policy, monkeypatch):
+    """A bf16 product (matmul_f32: the tensor cores, fp32 out) under
+    dropout from a card generator: remat's gradients equal the unwrapped
+    function's bitwise, and the caller's generator ends where one forward
+    leaves it. Under "dots" the policy keeps the card's products (the
+    `mm` of `torch.mm(..., out_dtype=float32)`), so the backward uses the
+    products the forward made."""
+    from dlsg_tpu_torch.ops import remat as remat_mod
+
+    saved = []
+    real_policy = remat_mod._save_dots
+
+    def recording(ctx, func, *args, **kwargs):
+        decision = real_policy(ctx, func, *args, **kwargs)
+        if decision == remat_mod.CheckpointPolicy.MUST_SAVE:
+            saved.append(str(func))
+        return decision
+
+    monkeypatch.setattr(remat_mod, "_save_dots", recording)
+    rs = np.random.default_rng(8)
+    x = torch.tensor(rs.normal(size=(64, 96)), dtype=torch.bfloat16, device=card, requires_grad=True)
+    w = torch.tensor(rs.normal(size=(96, 80)), dtype=torch.bfloat16, device=card, requires_grad=True)
+
+    def fn(a, rng=None):
+        return torch.tanh(linear.dropout(matmul_f32(a, w), 0.3, rng)) ** 2
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    want = torch.autograd.grad(fn(x, rng=gen).sum(), (x, w))
+    after = gen.get_state()
+    gen = torch.Generator(device=card).manual_seed(9)
+    got = torch.autograd.grad(remat_mod.remat(fn, policy, gen)(x).sum(), (x, w))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(gen.get_state(), after)
+    if policy == "dots":
+        assert saved and all(s.startswith("aten.mm") for s in saved), saved
+
+
+@pytest.mark.parametrize("fields", [{"decoder_remat": "dots"}, {"decoder_remat": "full"},
+                                    {"disc_remat": "dots"}, {"disc_remat": "full"}])
+def test_tiny_gan_step_with_remat_on_card_equals_none(card, fields):
+    """One bf16 GAN step at tiny dims on the card, dropout 0.3 and a
+    teacher-forcing ratio of 0.5 (masks and coins drawn from a card
+    generator), under each remat field against the same step without:
+    metrics rtol 1e-5, parameters and Adam first moments atol 2e-5
+    (tests/test_torch_remat.py's tolerances)."""
+    rng = np.random.default_rng(6)
+    n, V = 4, 50
+    cfg = tiny_test_config(compute_dtype="bfloat16")
+    lengths = rng.integers(2, cfg.max_words + 1, size=n)
+    batch = {
+        "frames": rng.normal(size=(n, cfg.max_frames, cfg.feature_size)).astype(np.float32),
+        "regions": rng.normal(size=(n, cfg.max_frames, cfg.num_obj, cfg.region_feature_size)).astype(np.float32),
+        "captions": np.where(np.arange(cfg.max_words)[None] < lengths[:, None],
+                             rng.integers(4, V, size=(n, cfg.max_words)), 0),
+        "lengths": lengths,
+    }
+    runs = []
+    for c in (cfg, replace(cfg, **fields)):
+        g, d = CapGnnModel(c, V, device=card), DiscV2(c, V, device=card)
+        gs, ds = TrainState.create(g, make_optimizer(1e-4)), TrainState.create(d, make_optimizer(1e-4))
+        gs, ds, _, m = make_gan_train_step(g, d, c)(
+            gs, ds, init_lambda_state(0.01, device=card), batch, 3, 0.5)
+        runs.append(({k: float(v) for k, v in m.items() if k != "sample_tokens"},
+                     {**{f"G.{k}": v for k, v in g.state_dict().items()},
+                      **{f"D.{k}": v for k, v in d.state_dict().items()},
+                      **{f"G.mu.{k}": v for k, v in gs.first_moments().items()},
+                      **{f"D.mu.{k}": v for k, v in ds.first_moments().items()}}))
+    (wm, wt), (gm, gt) = runs
+    for k, v in wm.items():
+        assert gm[k] == pytest.approx(v, rel=1e-5), k
+    for k, v in wt.items():
+        torch.testing.assert_close(gt[k], v, rtol=0, atol=2e-5, msg=k)

@@ -264,6 +264,26 @@ def test_dropout_masks_are_the_same_on_model_peers(jobs):
     _check_layout([r["dropout_step"] for r in tp], "ce", [])
 
 
+def test_decoder_remat_on_the_model_axis_equals_none(jobs):
+    """decoder_remat="full" with the head split over the 2 ranks and
+    dropout on: the backward recomputes each scan step, its logits
+    all-gather included, on every rank in the same order. Each rank's GAN
+    and CE steps equal the same job's steps without remat (losses rtol
+    1e-5, parameters atol 2e-5, tests/test_torch_remat.py's tolerances)."""
+    _, tp, *_ = jobs
+    for r in tp:
+        for step in ("gan", "ce"):
+            want, got = r["dropout_step"][step], r["dropout_step_remat"][step]
+            for k, v in want["metrics"].items():
+                if k != "sample_tokens":
+                    np.testing.assert_allclose(got["metrics"][k].numpy(), v.numpy(), rtol=1e-5,
+                                               err_msg=(step, k))
+            for part in ("g", "d") if step == "gan" else ("g",):
+                for name, t in want[part]["params"].items():
+                    np.testing.assert_allclose(got[part]["params"][name].numpy(), t.numpy(),
+                                               rtol=0, atol=2e-5, err_msg=(step, part, name))
+
+
 def test_run_gan_epoch_on_the_model_axis_matches_one_process(jobs):
     """tests/test_trainer.py:73: one epoch of RunGAN with the head split
     over 2 ranks ends within 2e-4 of the same epoch in one process

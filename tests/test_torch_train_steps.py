@@ -117,11 +117,12 @@ def _jax_models(cfg, batch):
     return gen, disc, g["params"], d["params"]
 
 
-def run_gan_case(single_fwd: bool):
-    """One GAN step in both packages from the same weights: (JAX result,
-    port result), each {"g_mu", "g_params", "d_mu", "d_params", "metrics",
-    "g_step", "d_step"} of numpy arrays keyed like the port's state_dict."""
-    jcfg = jax_tiny(dropout=0.0, gan_single_forward=single_fwd)
+def run_gan_case(single_fwd: bool, **fields):
+    """One GAN step in both packages from the same weights, both configs
+    given `fields` too: (JAX result, port result), each {"g_mu",
+    "g_params", "d_mu", "d_params", "metrics", "g_step", "d_step"} of numpy
+    arrays keyed like the port's state_dict."""
+    jcfg = jax_tiny(dropout=0.0, gan_single_forward=single_fwd, **fields)
     batch = _batch(jcfg)
     gen, disc, gp, dp = _jax_models(jcfg, batch)
     g0, d0 = params_from_jax(gp), params_from_jax(dp)  # before the donating step
@@ -141,7 +142,7 @@ def run_gan_case(single_fwd: bool):
         "g_step": int(g2.step), "d_step": int(d2.step),
     }
 
-    cfg = tiny_test_config(dropout=0.0, gan_single_forward=single_fwd)
+    cfg = tiny_test_config(dropout=0.0, gan_single_forward=single_fwd, **fields)
     tg, td = CapGnnModel(cfg, V, device="cpu"), DiscV2(cfg, V, device="cpu")
     tg.load_state_dict(g0)
     td.load_state_dict(d0)
