@@ -17,13 +17,21 @@ line per phase:
 2. build: seconds to build every kernel (one nvcc per source, in parallel,
    with g++ building the scorer library beside them), ptxas's registers per
    kernel, and the tensor-core instructions `cuobjdump` finds in each
-   library (HMMA for the float mma.sync products; qmatmul's s8 products must
-   be warpgroup wgmma, IGMMA, with no IMMA mma.sync left);
+   library: warpgroup wgmma (HGMMA) in the vocab head's (its bf16 route),
+   beside mma.sync (HMMA) for its fp32 tiles; HGMMA and no
+   HMMA in the LSTM scan's; qmatmul's s8 products must be warpgroup wgmma,
+   IGMMA, with no IMMA mma.sync left;
 3. kernel checks: each kernel against its plain PyTorch version at the
    shapes the serving path gives it (MSR-VTT widths, batch 128, beam 5); the
-   vocab head once per tile form, bf16 w (bf16 tensor-core tiles, the
-   serving path) and fp32 w (TF32x3 tiles: three TF32 products of a hi/lo
-   split), the fp32 form's top-k logits also held within max(3 x the plain
+   LSTM scan in both directions, each also run REPEATS times and bitwise
+   equal every time (h_t comes back through TMA: a missing proxy fence or
+   a leaky step barrier shows as a run that differs); the vocab head once
+   per w dtype, bf16 w (the persistent TMA + wgmma kernel, the serving
+   path, at G = 640 and at the first beam step's G = 128, each checked and
+   timed with the wrapper's host time a call, and at G = 640 against a
+   9 999-word vocabulary in the decoder's layout, rows of ceil8(V)) and
+   fp32 w (TF32x3 tiles: three TF32 products of a hi/lo split),
+   the fp32 form's top-k logits also held within max(3 x the plain
    fp32 product's error, 2e-6) of a float64 product, which one TF32 pass
    fails; qmatmul (the int8 product) at the int8 decode's three products
    (the quantized Wq 2860 x 4096, Wl 4608 x 6144 and Wv 1536 x 10000 of the
@@ -129,7 +137,7 @@ line per phase:
    lambda state bitwise, and trains epoch 1. It checks the logged losses
    (finite, every tag), the step counters (G 2 then 4, D 10 then 20), both
    epoch checkpoints, all seven finite scores per eval, the vocab head
-   launched on the tensor-core tiles on every beam step of every eval decode
+   launched on its bf16 (wgmma) route on every beam step of every eval decode
    (between 1 and max_words launches per eval) and no lstm_scan launch; then
    the final generator's eval decode against the same decode with the plain
    vocab head (token agreement >= 99%), and `cli train --synthetic` at tiny
@@ -142,8 +150,8 @@ line per phase:
 6a. baselines: (a) CapModel, CapBaseline1 and CapBaselineModel at the
    serving config (MSR-VTT widths, bf16, use_pallas_lstm, fused vocab head,
    10 000 words, seeded random weights): the beam-5 decode of 128 clips
-   through both kernels, K2 twice and K1 once a beam step on the
-   tensor-core tiles, held to the serving phase's three agreement rules
+   through both kernels, K2 twice and K1 once a beam step on its bf16
+   (wgmma) route, held to the serving phase's three agreement rules
    against the same decode through the plain versions; each decode's and
    encode's ms (median of 7 CUDA-event timings). Then the CE step of
    CapBaseline1 and CapModel's own at MSR-VTT widths, bf16, batch 128
@@ -152,7 +160,7 @@ line per phase:
    (Adam moments within MOMENT_TOL, lr MOMENT_CHECK_LR). (b) `cli
    train-base --synthetic` and `cli train-legacy --synthetic` at MSR-VTT
    widths (bf16, fused head, batch 128, 86 videos x 3 captions: 2 CE steps
-   and an eval after each): exit 0, K1 on the tensor-core tiles on every
+   and an eval after each): exit 0, K1 on its bf16 (wgmma) route on every
    beam step of each eval decode, seven finite scores, the losses and
    scores logged, no checkpoint directory; `--resume` exits 2. (c) `cli
    train-base --use_glove true --freeze_word_embed true` with a GloVe
@@ -179,7 +187,7 @@ line per phase:
    over NCCL at world size 1, then the same command without a process group
    and the same seed: the epoch_0 checkpoints must be equal bitwise (NCCL's
    sum over one rank is exact) and so must every logged loss and score;
-   the vocab head must launch on the tensor-core tiles in each eval, the
+   the vocab head must launch on its bf16 (wgmma) route in each eval, the
    LSTM kernel never. (b) `--gan-rank`: one GAN step at MSR-VTT widths,
    fp32, dropout off, epsilon 1, fixed penalty weights, lr 1e-7, over two
    ranks x 64 on the one card over gloo against one process x 128: the two
@@ -205,7 +213,7 @@ line per phase:
    and fp32 against the whole head's K1 decode of the same weights (the
    one-process decode, run in the same rank so that both share its cuBLAS
    set-up): token agreement >= 99% each, K1 launched once a beam step on
-   each rank on the dtype's route (tensor_cores, tf32x3), and one beam
+   each rank on the dtype's route (wgmma, tf32x3), and one beam
    step's split K1 + merge equal to the whole K1 at G = 640 (ids, values
    within KERNEL_TOL); it also gives the whole decode's own agreement under
    a 1e-6 input perturbation. (c) Captioner(mesh=) on a (data 2) mesh at
@@ -220,7 +228,7 @@ line per phase:
    `kernels` line (times, bounds, launches on each path: serving,
    two_pass, server, int8, learning, train, remat, graph_variants,
    trainer, baselines, cli_serve, data_parallel, model_axis; K2 and K1's
-   tensor-core form must launch on the baselines path, qmatmul on the int8
+   bf16 (wgmma) route must launch on the baselines path, qmatmul on the int8
    and learning paths), the nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -263,13 +271,14 @@ from dlsg_tpu_torch.config import DLSGConfig, apply_dataset_overrides, parse_opt
 from dlsg_tpu_torch.evaluation import decode as decode_mod  # noqa: E402
 from dlsg_tpu_torch.evaluation.decode import make_decode_fn  # noqa: E402
 from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB  # noqa: E402
-from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain  # noqa: E402
+from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain, lstm_scan_plan  # noqa: E402
 from dlsg_tpu_torch.kernels.qmatmul import LIBRARY as QMM_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.qmatmul import qmatmul_plan  # noqa: E402
 from dlsg_tpu_torch.kernels.breakdown import device_us_per_call, int_mm_library  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import ROUTE_LAUNCHES  # noqa: E402
-from dlsg_tpu_torch.kernels.vocab_head import vocab_head_plan, vocab_head_topk  # noqa: E402
+from dlsg_tpu_torch.kernels.vocab_head import aligned_rows, vocab_head_plan  # noqa: E402
+from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk_plain  # noqa: E402
 from dlsg_tpu_torch.config import tiny_test_config  # noqa: E402
 from dlsg_tpu_torch.data.loader import eval_batches  # noqa: E402
@@ -314,6 +323,11 @@ TOKEN_AGREEMENT_MIN = 0.99
 BF16_FLOOR_MARGIN = 0.02
 DEVICE = "cuda"
 KERNEL_TOL = 1e-3
+# K1's route for bf16 w, every shape (rows TMA cannot read are laid out in
+# rows it can): the persistent TMA + wgmma kernel
+K1_BF16 = "wgmma"
+K1_BF16_KEY = f"vocab_head[{K1_BF16}]"
+REPEATS = 10  # runs of K2 at the serving shape that must agree bitwise
 # the fp32 vocab head against a float64 product: within this many times the
 # plain fp32 product's error, or F64_FLOOR if that is larger (one TF32 pass
 # is ~4.6e-4 off at K1's operands)
@@ -521,6 +535,11 @@ def phase_build() -> float:
         raise AssertionError(f"a kernel library has no tensor-core instruction: {mma}")
     if not mma[QMM_LIB.name]["IGMMA"] or mma[QMM_LIB.name]["IMMA"]:
         raise AssertionError(f"qmatmul's s8 products must be wgmma (IGMMA), no mma.sync: {mma}")
+    if not mma[VOCAB_LIB.name]["HGMMA"] or not mma[VOCAB_LIB.name]["HMMA"]:
+        raise AssertionError(f"the vocab head's bf16 route must be wgmma (HGMMA) beside its "
+                             f"fp32 mma.sync (HMMA) tiles: {mma}")
+    if not mma[LSTM_LIB.name]["HGMMA"] or mma[LSTM_LIB.name]["HMMA"]:
+        raise AssertionError(f"lstm_scan's products must be wgmma (HGMMA), no mma.sync: {mma}")
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "sass_mma": mma,
           "scorer_library_s": native_build["s"], "scorer_library": native.library_path().name})
     return native_build["s"]
@@ -528,7 +547,8 @@ def phase_build() -> float:
 
 def check_lstm_scan(cfg: DLSGConfig) -> dict:
     """K2 at the encoder Bi-LSTM's shapes: B=128, T=26, H=1024, both
-    directions, against lstm_scan_plain."""
+    directions, against lstm_scan_plain, and each direction's REPEATS runs
+    bitwise equal."""
     B, T, H = BATCH, cfg.max_frames, cfg.visual_hidden_size
     g = torch.Generator().manual_seed(SEED)
     xw = (torch.randn(B, T, 4 * H, generator=g) * 0.5).to(DEVICE)
@@ -539,8 +559,15 @@ def check_lstm_scan(cfg: DLSGConfig) -> dict:
         torch.cuda.synchronize()
         want = lstm_scan_plain(xw, w_hh, reverse=reverse)
         err = max(err, float((got - want).abs().max()))
+        # h_t goes out by ordinary stores and comes back by TMA: a missing
+        # proxy fence or a leaky step barrier shows as a run that differs
+        repeats = [torch.equal(lstm_scan(xw, w_hh, reverse=reverse), got) for _ in range(REPEATS - 1)]
+        if not all(repeats):
+            raise AssertionError(f"lstm_scan (reverse={reverse}) is not bitwise repeatable: "
+                                 f"{repeats.count(False)} of {REPEATS - 1} runs differ")
     if not err <= KERNEL_TOL:
         raise AssertionError(f"lstm_scan differs from its plain version: {err} > {KERNEL_TOL}")
+    plan = lstm_scan_plan(B, H)
     # step 0 multiplies h0 = 0: no product. The kernel's product is fp32-exact
     # as three bf16 tensor-core passes (h split into hi + mid + lo), so the
     # least time for the same work is 3x the operations at the bf16 rate.
@@ -551,8 +578,13 @@ def check_lstm_scan(cfg: DLSGConfig) -> dict:
         "name": "lstm_scan", "route": "cuda", "source": "dlsg_tpu_torch/csrc/lstm_scan.cu",
         "replaces": "dlsg_tpu/ops/pallas/lstm_scan.py:98",
         "shapes": f"xw [{B},{T},{4 * H}] fp32, w_hh [{H},{4 * H}] -> bf16, one direction",
-        "design": "one cooperative launch per direction, W_hh in shared memory, "
-                  "3-term bf16 split of h on mma.sync",
+        "design": "one cooperative launch per direction, W_hh in shared memory (wgmma's "
+                  "K-major layout), h_{t-1} by TMA from a ping-pong scratch into an mbarrier "
+                  "ring, 3-term bf16 split of h as register A of wgmma m64n(4U)k16, a "
+                  "release/acquire step counter after a proxy fence",
+        "plan": {"units": plan.units, "groups": plan.groups, "blocks": plan.blocks,
+                 "stages": plan.stages, "boxes": plan.boxes},
+        "bitwise_repeats": REPEATS,
         "max_abs_err": err, "tolerance": KERNEL_TOL,
         "ms": time_ms(lambda: lstm_scan(xw, w_hh)),
         "plain_ms": time_ms(lambda: lstm_scan_plain(xw, w_hh)),
@@ -560,33 +592,66 @@ def check_lstm_scan(cfg: DLSGConfig) -> dict:
     }
 
 
-def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
-    """K1 at the beam step's shapes: G=640 (128 x beam 5), H=1536,
-    V=10000, k=5, against vocab_head_topk_plain. bf16 w takes the bf16
-    tensor-core tiles (the serving path), fp32 w the TF32x3 tiles, whose
-    top-k logits are also held against a float64 product."""
-    G, H, k = BATCH * BEAM, cfg.decode_hidden_size, BEAM
-    route = vocab_head_plan(G, VOCAB, w_dtype).route
-    g = torch.Generator().manual_seed(SEED + 1)
-    h = torch.tanh(torch.randn(G, H, generator=g)).to(DEVICE)  # like tanh(LN(l_h))
-    std = (2.0 / (H + VOCAB)) ** 0.5  # xavier-normal, as word_restore
-    w = (torch.randn(H, VOCAB, generator=g) * std).to(w_dtype).to(DEVICE)
-    b = (torch.randn(VOCAB, generator=g) * 0.01).to(DEVICE)
+def _k1_against_plain(h, w, b, k: int, route: str) -> dict:
+    """One K1 call against vocab_head_topk_plain on the same inputs: values
+    within KERNEL_TOL, ids that differ only at near-ties (logits within
+    KERNEL_TOL of each other)."""
     vals, ids = vocab_head_topk(h, w, b, k)
     torch.cuda.synchronize()
     pv, pi = vocab_head_topk_plain(h, w, b, k)
     err = float((vals - pv).abs().max())
-    logits = h.to(w_dtype).float() @ w.float() + b
+    logits = h.to(w.dtype).float() @ w.float() + b
     differ = ids != pi
     gap = (logits.gather(1, ids) - logits.gather(1, pi)).abs()
     near_tie_only = bool((gap[differ] <= KERNEL_TOL).all())
     if not (err <= KERNEL_TOL and near_tie_only):
         raise AssertionError(
-            f"vocab_head_topk ({route}) differs from its plain version: vals {err}, "
-            f"{int(differ.sum())} ids differ, near-ties only: {near_tie_only}"
+            f"vocab_head_topk ({route}, G = {h.shape[0]}) differs from its plain version: vals "
+            f"{err}, {int(differ.sum())} ids differ, near-ties only: {near_tie_only}"
         )
+    return {"max_abs_err": err, "ids_differ": int(differ.sum())}
+
+
+def _k1_times(h, w, b, k: int, peak: float, passes: int) -> dict:
+    """K1's ms (L2 flushed), its plain version's and the library call's
+    (torch.mm + bias + torch.topk + torch.logsumexp), and its bound: the
+    passes x 2GHV operations at `peak` or the bytes, whichever is larger;
+    its device time without host time (L2 warm) and the wrapper's host time
+    a call (`host_us`: plan, map of h, scratch, the two launches)."""
+    G, H = h.shape
+    V = w.shape[1]
+
+    def library():
+        lg = matmul_f32(h.to(w.dtype), w) + b  # bf16: torch.mm(out_dtype=float32)
+        return torch.topk(lg, k), torch.logsumexp(lg, dim=-1)
+
+    nbytes = h.numel() * 4 + w.numel() * w.element_size() + b.numel() * 4 + G * k * (4 + 8)
+    bms, by = bound_ms(passes * 2.0 * G * H * V, peak, nbytes)
+    return {
+        "ms": time_ms(lambda: vocab_head_topk(h, w, b, k)),
+        "plain_ms": time_ms(lambda: vocab_head_topk_plain(h, w, b, k)),
+        "bound_ms": bms, "bound_by": by, "library_ms": time_ms(library),
+        "device_ms": device_ms(lambda: vocab_head_topk(h, w, b, k)),
+        "host_us": host_us(lambda: vocab_head_topk(h, w, b, k)),
+    }
+
+
+def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
+    """K1 at the beam step's shapes: G=640 (128 x beam 5), H=1536,
+    V=10000, k=5, against vocab_head_topk_plain. bf16 w takes the
+    persistent TMA + wgmma kernel (the serving path), checked and timed also
+    at the first beam step's G = 128; fp32 w the TF32x3 tiles, whose top-k
+    logits are also held against a float64 product."""
+    G, H, k = BATCH * BEAM, cfg.decode_hidden_size, BEAM
+    route = vocab_head_plan(G, H, VOCAB, w_dtype).route
+    g = torch.Generator().manual_seed(SEED + 1)
+    h = torch.tanh(torch.randn(G, H, generator=g)).to(DEVICE)  # like tanh(LN(l_h))
+    std = (2.0 / (H + VOCAB)) ** 0.5  # xavier-normal, as word_restore
+    w = (torch.randn(H, VOCAB, generator=g) * std).to(w_dtype).to(DEVICE)
+    b = (torch.randn(VOCAB, generator=g) * 0.01).to(DEVICE)
+    checked = _k1_against_plain(h, w, b, k, route)
     fp32 = w_dtype == torch.float32
-    accuracy = {}
+    extra = {}
     if fp32:  # fp32 accuracy: the sorted top-k logits against a float64 product's
         want = torch.topk(h.double() @ w.double() + b.double(), k).values
         f64_err = float((vocab_head_topk(h, w, b, k, normalize=False)[0].double() - want).abs().max())
@@ -599,28 +664,40 @@ def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
                 f"vocab_head_topk ({route}) is {f64_err} from a float64 product, above "
                 f"{f64_tol} (the plain fp32 product: {plain_f64_err})"
             )
-        accuracy = {"f64_err": f64_err, "plain_f64_err": plain_f64_err, "f64_tol": f64_tol}
-
-    def library():
-        lg = matmul_f32(h.to(w_dtype), w) + b  # bf16: torch.mm(out_dtype=float32)
-        return torch.topk(lg, k), torch.logsumexp(lg, dim=-1)
-
-    ops = 2.0 * G * H * VOCAB
-    nbytes = h.numel() * 4 + w.numel() * w.element_size() + b.numel() * 4 + G * k * (4 + 8)
-    if fp32:  # three TF32 products (hi*lo, lo*hi, hi*hi) on the tensor cores
-        bms, by = bound_ms(3 * ops, PEAK_TF32, nbytes)
-        accuracy["bound_ms_fp32_cuda_core_rate"] = bound_ms(ops, PEAK_FP32, nbytes)[0]
+        extra = {"f64_err": f64_err, "plain_f64_err": plain_f64_err, "f64_tol": f64_tol,
+                 "bound_ms_fp32_cuda_core_rate": bound_ms(
+                     2.0 * G * H * VOCAB, PEAK_FP32,
+                     h.numel() * 4 + w.numel() * 4 + b.numel() * 4 + G * k * (4 + 8))[0]}
+        # three TF32 products (hi*lo, lo*hi, hi*hi) on the tensor cores
+        times = _k1_times(h, w, b, k, PEAK_TF32, 3)
+        design = ("a block per 128 x 128 tile, a cp.async ring, mma.sync m16n8k8 TF32 x 3 "
+                  "(hi/lo split of h and w), the logits tile staged for the top-k epilogue")
     else:
-        bms, by = bound_ms(ops, PEAK_BF16, nbytes)
+        h128 = h[:BATCH].contiguous()  # the first beam step: one beam per clip
+        plan128 = vocab_head_plan(BATCH, H, VOCAB, w_dtype)
+        first = _k1_against_plain(h128, w, b, k, plan128.route)
+        t128 = _k1_times(h128, w, b, k, PEAK_BF16, 1)
+        plan = vocab_head_plan(G, H, VOCAB, w_dtype)
+        # a vocabulary of any size (len(vocab) of a dataset): w in the
+        # decoder's layout, rows of ceil8(V), read in place by TMA
+        vr = VOCAB - 1
+        wr, br = aligned_rows(w[:, :vr]), b[:vr].contiguous()
+        ragged = _k1_against_plain(h, wr, br, k, route)
+        extra = {"g128": {**first, **t128, "block_n": plan128.block_n,
+                          "tiles": list(plan128.tiles), "blocks": plan128.blocks},
+                 f"v{vr}": {**ragged, "row_pitch": wr.stride(0),
+                            "ms": time_ms(lambda: vocab_head_topk(h, wr, br, k))},
+                 "block_n": plan.block_n, "tiles": list(plan.tiles), "blocks": plan.blocks}
+        times = _k1_times(h, w, b, k, PEAK_BF16, 1)
+        design = ("persistent warp-specialized: TMA (128-byte swizzle) into an mbarrier ring, "
+                  "wgmma m64nBNk16 bf16 with transpose-B (w MN-major), two consumer "
+                  "warpgroups, top-k and (max, sumexp) from the accumulators, merge launch")
     return {
         "name": f"vocab_head_topk[{route}]", "route": "cuda",
         "source": "dlsg_tpu_torch/csrc/vocab_head.cu",
         "replaces": "dlsg_tpu/ops/pallas/vocab_head.py:117",
         "shapes": f"h [{G},{H}] fp32, w [{H},{VOCAB}] {'fp32' if fp32 else 'bf16'}, b [{VOCAB}], k={k}",
-        "max_abs_err": err, "ids_differ": int(differ.sum()), "tolerance": KERNEL_TOL, **accuracy,
-        "ms": time_ms(lambda: vocab_head_topk(h, w, b, k)),
-        "plain_ms": time_ms(lambda: vocab_head_topk_plain(h, w, b, k)),
-        "bound_ms": bms, "bound_by": by, "library_ms": time_ms(library),
+        "design": design, **checked, "tolerance": KERNEL_TOL, **times, **extra,
     }
 
 
@@ -721,8 +798,8 @@ def phase_serving(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
         raise AssertionError(
             f"vocab_head launched {launches['vocab_head']} times for {beam_decodes} beam decodes"
         )
-    if launches["vocab_head[tensor_cores]"] != launches["vocab_head"]:
-        raise AssertionError(f"bf16 serving did not take the tensor-core tiles only: {launches}")
+    if launches[K1_BF16_KEY] != launches["vocab_head"]:
+        raise AssertionError(f"bf16 serving did not take K1's {K1_BF16} route only: {launches}")
 
     # ---- timing: a 128-clip batch already on the card ----
     decode = make_decode_fn(captioner.model, cfg, beam_size=BEAM, device=DEVICE)
@@ -742,7 +819,7 @@ def phase_serving(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
     with torch.inference_mode():
         encode_ms = time_ms(lambda: captioner.model.encode(fr128, rg128), repeats=7, flush=False)
     caption_ms = time_ms(lambda: captioner.caption(*reqs[-1]), repeats=5, warmup=1, flush=False)
-    profile = device_profile(lambda: decode(fr128, rg128), decode_ms)
+    profile = device_profile(lambda: decode(fr128, rg128), decode_ms, top=12)
 
     # ---- the same batch through the plain versions, on the card ----
     # fp32 compute: the two decodes differ only in the kernels' summation order
@@ -1342,12 +1419,12 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int):
     real_evaluate = trainer_mod.evaluate
 
     def counted_evaluate(*args, **kw):
-        k1, tc = VOCAB_LIB.launches, ROUTE_LAUNCHES["tensor_cores"]
+        k1, k1_route = VOCAB_LIB.launches, ROUTE_LAUNCHES[K1_BF16]
         t = time.perf_counter()
         out = real_evaluate(*args, **kw)
         evals.append({"seconds": time.perf_counter() - t, "infer_s": out[3],
                       "k1_launches": VOCAB_LIB.launches - k1,
-                      "k1_tensor_core_launches": ROUTE_LAUNCHES["tensor_cores"] - tc,
+                      "k1_bf16_route_launches": ROUTE_LAUNCHES[K1_BF16] - k1_route,
                       "scores": out[0]})
         return out
 
@@ -1405,7 +1482,7 @@ def phase_trainer(cfg: DLSGConfig, vocab_size: int, num_videos: int):
     for ev in evals:
         if set(ev["scores"]) != set(SCORE_KEYS) or not all(np.isfinite(list(ev["scores"].values()))):
             raise AssertionError(f"eval scores: {ev['scores']}")
-        if not 1 <= ev["k1_launches"] <= cfg.max_words or ev["k1_tensor_core_launches"] != ev["k1_launches"]:
+        if not 1 <= ev["k1_launches"] <= cfg.max_words or ev["k1_bf16_route_launches"] != ev["k1_launches"]:
             raise AssertionError(f"vocab_head launches of an eval decode: {ev}")
     if launches["lstm_scan"] != 0:
         raise AssertionError(f"the trainer launched lstm_scan: {launches}")
@@ -1507,7 +1584,7 @@ def baseline_decode(cls, cfg: DLSGConfig, fr, rg, noise) -> dict:
     if ids.shape != (BATCH, cfg.max_words) or not bool(((ids >= 0) & (ids < VOCAB)).all()):
         raise AssertionError(f"{cls.__name__}: the decode gave ids {tuple(ids.shape)} out of range")
     if launches["lstm_scan"] != 2 or not 1 <= launches["vocab_head"] <= cfg.max_words or \
-            launches["vocab_head[tensor_cores]"] != launches["vocab_head"]:
+            launches[K1_BF16_KEY] != launches["vocab_head"]:
         raise AssertionError(f"{cls.__name__}: launches of one decode {launches}")
     with uncounted():
         decode_ms = time_ms(lambda: decode(fr, rg), repeats=7, warmup=1, flush=False)
@@ -1586,19 +1663,19 @@ def check_ce_card_vs_cpu() -> dict:
 
 def baseline_cli(command: str, result_dir: str, videos: int, evals_want: int, extra=()) -> dict:
     """`cli <command> --synthetic` at MSR-VTT widths (BASE_FLAGS) on the
-    card: exit 0, `evals_want` evals whose decodes launch K1 on the
-    tensor-core tiles on every beam step, all seven scores finite, the
+    card: exit 0, `evals_want` evals whose decodes launch K1 on its bf16
+    (wgmma) route on every beam step, all seven scores finite, the
     losses and scores logged (finite) and no checkpoint directory."""
     evals = []
     real_evaluate = trainer_mod.evaluate
 
     def counted_evaluate(*args, **kw):
-        k1, tc = VOCAB_LIB.launches, ROUTE_LAUNCHES["tensor_cores"]
+        k1, k1_route = VOCAB_LIB.launches, ROUTE_LAUNCHES[K1_BF16]
         t = time.perf_counter()
         out = real_evaluate(*args, **kw)
         evals.append({"seconds": time.perf_counter() - t, "infer_s": out[3],
                       "k1_launches": VOCAB_LIB.launches - k1,
-                      "k1_tensor_core_launches": ROUTE_LAUNCHES["tensor_cores"] - tc,
+                      "k1_bf16_route_launches": ROUTE_LAUNCHES[K1_BF16] - k1_route,
                       "scores": out[0]})
         return out
 
@@ -1618,7 +1695,7 @@ def baseline_cli(command: str, result_dir: str, videos: int, evals_want: int, ex
     for ev in evals:
         if set(ev["scores"]) != set(SCORE_KEYS) or not all(np.isfinite(list(ev["scores"].values()))):
             problems.append(f"scores {ev['scores']}")
-        if not 1 <= ev["k1_launches"] <= max_words or ev["k1_tensor_core_launches"] != ev["k1_launches"]:
+        if not 1 <= ev["k1_launches"] <= max_words or ev["k1_bf16_route_launches"] != ev["k1_launches"]:
             problems.append(f"K1 launches of an eval decode {ev}")
     if os.path.exists(os.path.join(result_dir, "checkpoints")):
         problems.append("it wrote a checkpoint directory")
@@ -1711,7 +1788,7 @@ def phase_baselines() -> dict:
     work.cleanup()
     if set(resume_rc.values()) != {2}:
         raise AssertionError(f"--resume: {resume_rc}, want exit 2")
-    if not launches["lstm_scan"] or not launches["vocab_head[tensor_cores]"]:
+    if not launches["lstm_scan"] or not launches[K1_BF16_KEY]:
         raise AssertionError(f"the baselines path did not launch both kernels: {launches}")
     result = {
         "phase": "baselines",
@@ -1801,7 +1878,7 @@ def phase_two_pass(cfg: DLSGConfig, params: dict) -> dict:
         steps_single = VOCAB_LIB.launches - k1
         n = launches[name]
         if n["lstm_scan"] != 2 or not 1 <= n["vocab_head"] <= TWO_PASS_T1 + cfg.max_words \
-                or n["vocab_head[tensor_cores]"] != n["vocab_head"]:
+                or n[K1_BF16_KEY] != n["vocab_head"]:
             raise AssertionError(f"two-pass decode ({name}) launches: {n}")
         if ids_two.shape != (BATCH, cfg.max_words) or not torch.equal(ids_two[fin], ids_one[fin]):
             raise AssertionError(f"two-pass ({name}): the rows pass 1 finished differ at bf16")
@@ -1906,7 +1983,7 @@ def phase_server(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
                 raise AssertionError(f"the server's captions differ from caption(): {got[:2]}")
         if not (k1_npz >= 1 and k1_json >= 1 and launches["lstm_scan"] == 2 * 3
                 and launches["vocab_head"] == k1_npz + k1_json
-                and launches["vocab_head[tensor_cores]"] == launches["vocab_head"]):
+                and launches[K1_BF16_KEY] == launches["vocab_head"]):
             raise AssertionError(f"server launches: {launches}, K1 {k1_npz} + {k1_json}")
         if health.get("device_name") != torch.cuda.get_device_name(0) or \
                 health.get("devices") != torch.cuda.device_count() or health.get("warm") is not True:
@@ -2117,7 +2194,7 @@ def phase_int8(cfg: DLSGConfig, params: dict) -> dict:
 
     steps_on = n_on["vocab_head"]
     if n_on["lstm_scan"] != 2 or not 1 <= steps_on <= cfg.max_words or \
-            n_on["qmatmul"] != 2 * steps_on or n_on["vocab_head[tensor_cores]"] != steps_on:
+            n_on["qmatmul"] != 2 * steps_on or n_on[K1_BF16_KEY] != steps_on:
         raise AssertionError(f"int8 decode, fused head on: launches {n_on}")
     if n_off["lstm_scan"] != 2 or n_off["vocab_head"] != 0 or n_off["qmatmul"] % 3 or \
             not 3 <= n_off["qmatmul"] <= 3 * cfg.max_words:
@@ -2588,7 +2665,7 @@ def phase_data_parallel() -> dict:
     gan_steps = len(dist_run["all_reduce"]) // per_step
     if evals < 1 or gan_steps < 1 or launches["lstm_scan"] or \
             not evals <= launches["vocab_head"] <= evals * DLSGConfig().max_words or \
-            launches["vocab_head[tensor_cores]"] != launches["vocab_head"]:
+            launches[K1_BF16_KEY] != launches["vocab_head"]:
         raise AssertionError(f"data_parallel (a): {evals} evals, {gan_steps} GAN steps, {launches}")
     reduce_ms = [sum(ms for ms, _ in dist_run["all_reduce"][i * per_step:(i + 1) * per_step])
                  for i in range(gan_steps)]
@@ -2705,7 +2782,7 @@ def ma_decode(compute_dtype: str, mesh) -> dict:
         pv, pi = vocab_head_topk(h, wv, bv, BEAM)
         out["step_max_abs_err"] = float((mv - pv).abs().max())
         out["step_ids_differ"] = int((mi != pi).sum())
-    route = vocab_head_plan(1, VOCAB, cfg.cdtype).route
+    route = vocab_head_plan(BATCH * BEAM, *wv_s.shape, cfg.cdtype).route
     steps = []
     real_step = model.decoder_beam_step_hidden
     model.decoder_beam_step_hidden = lambda *a: steps.append(1) or real_step(*a)
@@ -2892,7 +2969,7 @@ def phase_model_axis() -> dict:
         for rk in ranks:
             got = rk["b"][dtype]
             if not (got["k1_launches"] == got["k1_on_route"] == got["beam_steps"] >= 1
-                    and got["route"] == ("tensor_cores" if dtype == "bfloat16" else "tf32x3")
+                    and got["route"] == (K1_BF16 if dtype == "bfloat16" else "tf32x3")
                     and got["step_max_abs_err"] <= KERNEL_TOL and got["step_ids_differ"] == 0
                     and got["token_agreement"] >= TOKEN_AGREEMENT_MIN):
                 problems.append(f"(b) {dtype} rank {rk['rank']}: {got}")
@@ -2906,7 +2983,7 @@ def phase_model_axis() -> dict:
                         f"healthz {c0['healthz']}")
     launches = ranks[0]["launches"]
     if ranks[1]["launches"] != launches or not launches["lstm_scan"] or \
-            not launches["vocab_head[tensor_cores]"] or not launches["vocab_head[tf32x3]"]:
+            not launches[K1_BF16_KEY] or not launches["vocab_head[tf32x3]"]:
         problems.append(f"(a)-(c) launches {launches} / {ranks[1]['launches']}")
     if problems:
         raise AssertionError("model_axis: " + "; ".join(problems))
@@ -2966,7 +3043,7 @@ def main() -> None:
     t = time.perf_counter()
     checks = [
         ("lstm_scan", check_lstm_scan(cfg)),
-        ("vocab_head[tensor_cores]", check_vocab_head(cfg, torch.bfloat16)),
+        (K1_BF16_KEY, check_vocab_head(cfg, torch.bfloat16)),
         ("vocab_head[tf32x3]", check_vocab_head(cfg, torch.float32)),
     ]
     vocab, params = serving_model(cfg)

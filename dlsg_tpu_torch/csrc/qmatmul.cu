@@ -63,6 +63,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int K_ALIGN = 32;   // Kp = K rounded up; kernels/qmatmul.py::K_ALIGN
@@ -84,7 +86,6 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int QUANT_THREADS = 256;  // quantize kernel: one block a row
 constexpr int QUANT_HELD = 2;       // 16-value steps a thread keeps in registers
 constexpr unsigned FULL = 0xffffffffu;
-constexpr uint64_t WATCHDOG_NS = 10000000000ull;  // a wait this long traps (a lost phase)
 
 template <int BN>
 __host__ __device__ constexpr int stages_for() {
@@ -138,69 +139,6 @@ __device__ __forceinline__ void load16(const uint16_t* xr, int k0, int K, bool v
 #pragma unroll
     for (int e = 0; e < 16; ++e) v[e] = k0 + e < K ? bf16_bits(xr[k0 + e]) : 0.f;
   }
-}
-
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// wait for the completion of the barrier's phase of parity `parity`; a phase
-// that does not complete within WATCHDOG_NS traps (a CUDA error the launch's
-// caller sees) rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (unsigned n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n % 1024 == 0) {
-      const uint64_t now = global_ns();
-      if (t0 == 0) t0 = now;
-      else if (now - t0 > WATCHDOG_NS) __trap();
-    }
-  }
-}
-
-// one box (rows x 128 bytes) of a 2-D int8 tensor map at (k, row) into
-// shared memory, completing its bytes on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 // xq[k0 .. k0 + 16) of a row: clip(rint(v / scale), -127, 127), zero at k >= K
@@ -292,26 +230,6 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __
     }
   }
 }
-
-// wgmma operand descriptor of a K-major tile of 128-byte rows, 128-byte
-// swizzle (TMA's SWIZZLE_128B), 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving an accumulator register across an
-// asynchronous wgmma
-__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 #define D8(i)                                                                                \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
@@ -520,8 +438,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
     // ---- producer: one thread issues every TMA load
     if constexpr (CONSUMERS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == CONSUMERS * 128) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&a_map)) : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&b_map)) : "memory");
+      prefetch_map(&a_map);
+      prefetch_map(&b_map);
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -609,11 +527,6 @@ cudaError_t launch_tiles(const CUtensorMap& a, const CUtensorMap& b, const float
   return cudaGetLastError();
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 }  // namespace
 
 extern "C" const char* cuda_error_string(int err) {
@@ -644,16 +557,8 @@ extern "C" int qmatmul_smem_bytes(int bn) {
 // 128-byte swizzle, written to map_out (qmatmul_map_bytes() bytes). Returns 0,
 // the CUresult of the encoding, or -1 if cuTensorMapEncodeTiled is not found.
 extern "C" int qmatmul_encode_map(void* map_out, const void* ptr, int rows, int Kp, int weight) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return -1;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  const EncodeTiled encode = encode_tiled_fn();
+  if (encode == nullptr) return -1;
   CUtensorMap map;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Kp), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Kp)};

@@ -10,12 +10,16 @@ from an old build. `build_all` starts one nvcc per source at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dlsg_tpu_torch"
@@ -120,3 +124,22 @@ def build_all(libraries: Iterable[CudaLibrary]) -> None:
 
 # every kernel library exports this, for the messages of `CudaLibrary.check`
 ERROR_STRING = {"cuda_error_string": ([ctypes.c_int], ctypes.c_char_p)}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (asked once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cached(cache: OrderedDict, key, make, size: int):
+    """cache[key], made by make() when missing; least recently used out past
+    `size` entries."""
+    hit = cache.get(key)
+    if hit is None:
+        hit = cache[key] = make()
+        if len(cache) > size:
+            cache.popitem(last=False)
+    else:
+        cache.move_to_end(key)
+    return hit

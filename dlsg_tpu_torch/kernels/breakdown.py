@@ -5,28 +5,36 @@ changed.
 
 Run from the root of a checkout on a machine with a CUDA device and nvcc.
 Each variant is the kernel's source with the named statements deleted or
-replaced, built with the package's nvcc flags into
-`build/dlsg_tpu_torch/breakdown/` and bound in place of the kernel's library;
-the wrappers then time it at the serving path's shapes (CUDA events, mean of
-back-to-back calls, each variant twice). A variant with a part removed
-computes wrong values: its time says what the removed part costs, nothing
-else. The vocab head runs once per w dtype (both of its tile forms); for fp32
-w each variant's top-k logits are also held against a float64 product, so the
-variants that change the arithmetic (one TF32 pass, one accumulator) show what
-the TF32x3 design's accuracy rests on. `--against` builds another checkout's
-sources (the parent commit's, unpacked with `git archive`) as one more
-variant, timed in the same turns, for a before/after on one card, and adds
-the fp32 beam-5 decode of 128 clips at MSR-VTT widths under the vocab head's
-'whole' and 'against' builds (and with the fused head off). Prints one JSON
-line of microseconds per call, those errors and ptxas's registers per kernel
-of each variant. qmatmul (the int8 decode's product) runs at the decode's
-three products at G = 640, each with its int8 bound and its library
-yardstick (`int_mm_library`) timed beside it; its variants also get their
-device time without host time (torch.profiler, `device_us_per_call`), and
-the whole kernel is timed at each tile width the plan can choose. An
-`--against` source whose wrapper module differs from this checkout's (a
-changed C interface, as qmatmul's in the Hopper redesign) runs through
-that checkout's own wrapper.
+replaced, built with the package's nvcc flags (and `-I` its checkout's
+`csrc/` for the shared headers) into `build/dlsg_tpu_torch/breakdown/` and
+bound in place of the kernel's library; the wrappers then time it at the
+serving path's shapes (CUDA events, mean of back-to-back calls, each variant
+twice) and by device time without host time (torch.profiler,
+`device_us_per_call`, with each kernel's share). A variant with a part
+removed computes wrong values: its time says what the removed part costs,
+nothing else. The vocab head runs once per w dtype: bf16 w (the persistent
+wgmma kernel) at the beam step's G = 640 and the first step's G = 128, and
+at each tile width the plan can choose; fp32 w (TF32x3 tiles), whose
+variants' top-k logits are also held against a float64 product, so the
+variants that change the arithmetic (one TF32 pass, one accumulator) show
+what the TF32x3 design's accuracy rests on. The LSTM scan runs one
+direction each way, and also with the plan's row groups, units and
+two-chunk stages forced to the alternatives. `--against` builds another
+checkout's sources (the parent commit's, unpacked with `git archive`) as
+one more variant, timed in the same turns, for a before/after on one card;
+an `--against` source whose wrapper module differs from this checkout's (a
+changed C interface) runs through that checkout's own wrapper. It also
+times the fp32 beam-5 decode of 128 clips at MSR-VTT widths under the
+vocab head's 'whole' build, and under the 'against' build where the two
+vocab head wrappers are the same, and with the fused head off; and the bf16
+beam-5 decode (the serving path) on each checkout's kernels and wrappers in
+turns, one decode each a turn. Prints one JSON line of microseconds
+per call (and each call's host time: the wrapper's enqueue, no
+synchronisation), those errors and ptxas's registers per kernel of each
+variant. qmatmul (the int8 decode's product) runs at the
+decode's three products at G = 640, each with its int8 bound and its
+library yardstick (`int_mm_library`) timed beside it, and the whole kernel
+at each tile width the plan can choose.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from dataclasses import replace
 from pathlib import Path
 from typing import Optional
@@ -47,10 +56,12 @@ import torch
 
 from dlsg_tpu_torch.kernels import _build, lstm_scan, qmatmul, vocab_head
 
-_MMA = ("mma_bf16(acc[0][j], lo, bw);", "mma_bf16(acc[1][j], mid, bw);",
-        "mma_bf16(acc[2][j], hi, bw);")
-_LOADS = ("if (c < n_chunks) load_chunk(c);", "if (c + NS - 1 < n_chunks) load_chunk(c + NS - 1);")
-_KERNELS = ("tc_tile_kernel", "tf32x3_tile_kernel", "merge_kernel", "lstm_scan_kernel",
+_MMA = ("                wgmma_rs<N>(acc[p], cur[kk].t[p], sw128_desc(wk + 32 * kk));\n",)
+_LOADS = ("            mbar_expect_tx(full, STAGE_BYTES);\n"
+          "            for (int bx = 0; bx < BOXES; ++bx)\n"
+          "              tma_load_3d(ring + stage * STAGE_BYTES + bx * CHUNK_BYTES, &h_map,\n"
+          "                          (st * BOXES + bx) * KC, rt * ROWS, (s - 1) & 1, full);\n",)
+_KERNELS = ("vh_wgmma_kernel", "tc_tile_kernel", "tf32x3_tile_kernel", "merge_kernel", "lstm_scan_kernel",
             "qmm_wgmma_kernel", "qmm_tile_kernel", "quantize_rows_kernel")
 # the int8 decode's products at MSR-VTT widths: (weight, K, N) of Wq, Wl, Wv
 QMATMUL_SHAPES = (("Wq", 2860, 4096), ("Wl", 4608, 6144), ("Wv", 1536, 10000))
@@ -70,19 +81,25 @@ def _cut(*stmts):
 VARIANTS = {
     lstm_scan.LIBRARY: {
         "whole": {},
-        "no_grid_barrier": _cut("if (s + 1 < T) cg::this_grid().sync();"),
-        "no_product": _cut(*_MMA),  # the h split and fragment loads go with it (dead code)
-        "no_h_loads": _cut(*_LOADS),
-        "no_product_no_h_loads": _cut(*_MMA, *_LOADS),
+        # the step barrier's wait cut (each block loads h_{t-1} at once)
+        "no_grid_barrier": _cut("        step_wait(counter, (unsigned)s * gridDim.x);  "
+                                "// every block's h_{t-1} is stored\n"),
+        "no_product": {_MMA[0]: "                ;\n"},  # the splits stay (their fragments are pinned)
+        # the producer arrives on each stage without loading it
+        "no_h_loads": {_LOADS[0]: "            mbar_arrive(full);\n"},
+        "no_product_no_h_loads": {_MMA[0]: "                ;\n", _LOADS[0]: "            mbar_arrive(full);\n"},
     },
     vocab_head.LIBRARY: {
         "whole": {},
-        # bf16 w: tc_tile_kernel
-        "no_epilogue": _cut(
-            "tile_epilogue<TC_BM>(C, row0, col0, tile, G, V, k, n_tiles, part_v, part_i, "
-            "part_m, part_s);"
-        ),
-        "no_mainloop": {"const int KT = (H + TC_BK - 1) / TC_BK;": "const int KT = 0;"},
+        # bf16 w: vh_wgmma_kernel (route wgmma); a test that never passes keeps
+        # one read of the accumulators (ptxas drops a wgmma nobody reads)
+        "no_epilogue": {
+            "      wgmma_epilogue<BN, KL>(acc, bias, row0, col0, tile / MT, G, V, k, n_tiles, "
+            "part_v, part_i,\n                             part_m, part_s);\n":
+                "      if (acc[0] == 1e30f) part_m[0] = 0.f;\n"},
+        "no_mainloop": {"const int KT = (H + W_BK - 1) / W_BK;": "const int KT = 0;"},
+        # 64-row tiles, one consumer warpgroup a block, same grid (still right)
+        "one_consumer": {"constexpr int W_CONSUMERS = 2;": "constexpr int W_CONSUMERS = 1;"},
         # fp32 w: tf32x3_tile_kernel
         "tf32x3_no_epilogue": _cut(
             "tile_epilogue<F_BM>(C, row0, col0, tile, G, V, k, n_tiles, part_v, part_i, "
@@ -143,8 +160,9 @@ def _build_variants(against: Optional[Path]):
             src = out / f"{lib.name}_{name}.cu"
             src.write_text(text)
             so = out / f"lib{lib.name}_{name}.so"
+            headers = other.parent if name == "against" else _build.CSRC  # its own csrc/*.cuh
             procs[(lib, name)] = (so, subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(headers), "-o", str(so), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
     builds, registers = {}, {}
@@ -181,6 +199,7 @@ def _against_wrappers(against: Optional[Path]) -> dict:
             continue
         spec = importlib.util.spec_from_file_location(f"against_{lib.name}", other)
         module = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = module  # a dataclass looks its module up while it is built
         spec.loader.exec_module(module)
         out[lib] = module
     return out
@@ -281,6 +300,72 @@ def _decode_calls(n_clips: int = 128, vocab: int = 10000):
     return {"fused_on": lambda: on(fr, rg), "fused_off": lambda: off(fr, rg)}
 
 
+def _decode_turns(builds: dict, against_mods: dict, n: int = 10) -> dict:
+    """Wall ms of the bf16 beam-5 decode of 128 MSR-VTT clips (the serving
+    path: seeded random weights, both kernels on) in this process, in turns:
+    each turn one decode on this checkout's kernels and wrappers and one on
+    the --against checkout's (both libraries bound to its builds, its
+    wrappers put in the decode's place where they differ), the order
+    alternating; n turns after one that warms both up."""
+    from dlsg_tpu_torch.config import DLSGConfig, apply_dataset_overrides
+    from dlsg_tpu_torch.evaluation import decode as decode_mod
+    from dlsg_tpu_torch.evaluation.decode import make_decode_fn
+    from dlsg_tpu_torch.models.generator import CapGnnModel
+    from dlsg_tpu_torch.ops import lstm as lstm_ops
+
+    cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
+                                             use_pallas_lstm=True, use_fused_vocab_head="on"))
+    model = CapGnnModel(cfg, 10000, generator=torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(0)
+    fr = torch.from_numpy(rng.standard_normal((128, cfg.max_frames, cfg.feature_size),
+                                              dtype=np.float32)).cuda()
+    rg = torch.from_numpy(rng.standard_normal(
+        (128, cfg.max_frames, cfg.num_obj, cfg.region_feature_size), dtype=np.float32)).cuda()
+    decode = make_decode_fn(model, cfg, beam_size=5, device="cuda")
+    libs = {vocab_head.LIBRARY: (decode_mod, "vocab_head_topk"), lstm_scan.LIBRARY: (lstm_ops, "lstm_scan")}
+    own = {lib: (lib.load(), getattr(where, name)) for lib, (where, name) in libs.items()}
+
+    def bind(side: str) -> None:
+        for lib, (where, name) in libs.items():
+            mod = against_mods.get(lib) if side == "against" else None
+            if side == "whole":
+                lib._lib = own[lib][0]
+                setattr(where, name, own[lib][1])
+            elif mod is None:
+                _bind(lib, builds[(lib, "against")])
+            else:
+                _bind(mod.LIBRARY, builds[(lib, "against")])
+                setattr(where, name, getattr(mod, name))
+
+    out = {"whole": [], "against": []}
+    try:
+        for turn in range(n + 1):
+            for side in ("whole", "against") if turn % 2 else ("against", "whole"):
+                bind(side)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                decode(fr, rg)
+                torch.cuda.synchronize()
+                if turn:  # the first turn warms both up
+                    out[side].append((time.perf_counter() - t) * 1e3)
+    finally:
+        bind("whole")
+    return out
+
+
+def _host_us(fn, n: int) -> float:
+    """Host microseconds a call takes to enqueue its work: wall clock over n
+    back-to-back calls, no synchronisation between them."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -306,18 +391,35 @@ def main(argv=None) -> None:
     shared = ("whole", "against")
     bf16 = lambda n: n in shared or not n.startswith("tf32x3_")  # noqa: E731
     fp32 = lambda n: n in shared or n.startswith("tf32x3_")  # noqa: E731
+    h128 = h[:128].contiguous()  # the first beam step's rows (128 clips, one beam)
+    vh = lambda *a, **kw: WRAPPERS[vocab_head.LIBRARY].vocab_head_topk(*a, **kw)  # noqa: E731
+    scan = lambda *a, **kw: WRAPPERS[lstm_scan.LIBRARY].lstm_scan(*a, **kw)  # noqa: E731
     # library -> [(label, call, calls per timing, variants it times, error or None)]
     calls = {
         vocab_head.LIBRARY: [
             ("vocab_head_topk h [640,1536] w [1536,10000] bf16 k=5",
-             lambda: vocab_head.vocab_head_topk(h, w, b, 5), 20, bf16, None),
+             lambda: vh(h, w, b, 5), 20, bf16, None),
+            ("vocab_head_topk h [128,1536] w [1536,10000] bf16 k=5",
+             lambda: vh(h128, w, b, 5), 20, bf16, None),
             ("vocab_head_topk h [640,1536] w [1536,10000] fp32 k=5",
-             lambda: vocab_head.vocab_head_topk(h32, w32, b32, 5), 20, fp32,
-             _f64_error(h32, w32, b32, 5)),
+             lambda: vh(h32, w32, b32, 5), 20, fp32, _f64_error(h32, w32, b32, 5)),
         ],
         lstm_scan.LIBRARY: [("lstm_scan B=128 T=26 H=1024, one direction",
-                             lambda: lstm_scan.lstm_scan(xw, w_hh), 10, lambda n: True, None)],
+                             lambda: scan(xw, w_hh), 10, lambda n: True, None),
+                            ("lstm_scan B=128 T=26 H=1024, reverse",
+                             lambda: scan(xw, w_hh, reverse=True), 10, lambda n: n in shared,
+                             None)],
     }
+    # K2's row groups (the plan: 2 groups of 64 rows x 64 blocks of 16 units)
+    # against one group reading the whole batch, at 16 and at 8 units a block,
+    # and its stages of two chunks against stages of one
+    for units, groups, boxes in ((16, 1, 2), (8, 1, 2), (16, 2, 1)):
+        calls[lstm_scan.LIBRARY].append((
+            f"lstm_scan B=128 T=26 H=1024, one direction, units={units} groups={groups} "
+            f"boxes={boxes}",
+            lambda units=units, groups=groups, boxes=boxes: _forced_scan(xw, w_hh, units, groups,
+                                                                         boxes), 10,
+            lambda n: n == "whole", None))
     from dlsg_tpu_torch.ops.quant import quantize_weight
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -338,17 +440,21 @@ def main(argv=None) -> None:
             "plan": {"block_n": plan.block_n, "blocks": plan.blocks, "tiles": list(plan.tiles)},
             "device_us_by_block_n": _by_block_n(call),
         }
+    against_mods = _against_wrappers(args.against)
     if args.against is not None:
+        # the decode calls this checkout's wrapper: it times the other build
+        # only where the two wrappers are the same
         decode = _decode_calls()
         label = "decode fp32 beam-5 128 msr-vtt clips, fused vocab head"
+        same = vocab_head.LIBRARY not in against_mods
         calls[vocab_head.LIBRARY].append(
-            (label + " on", decode["fused_on"], 3, lambda n: n in shared, None))
+            (label + " on", decode["fused_on"], 3,
+             lambda n: n == "whole" or (n == "against" and same), None))
         calls[vocab_head.LIBRARY].append(
             (label + " off", decode["fused_off"], 3, lambda n: n == "whole", None))
     saved = {lib: lib.load() for lib in VARIANTS}
     own = dict(WRAPPERS)
-    against_mods = _against_wrappers(args.against)
-    result, device, kernel_us, errors = {}, {}, {}, {}
+    result, device, kernel_us, errors, host = {}, {}, {}, {}, {}
     for _ in range(2):
         for (lib, name), so in builds.items():
             mod = against_mods.get(lib) if name == "against" else None
@@ -362,18 +468,22 @@ def main(argv=None) -> None:
                     if not times(name):
                         continue
                     result.setdefault(label, {}).setdefault(name, []).append(_us_per_call(fn, n))
-                    if lib is qmatmul.LIBRARY:
-                        split = kernel_us.setdefault(label, {}).setdefault(name, {})
-                        device.setdefault(label, {}).setdefault(name, []).append(
-                            device_us_per_call(fn, n, split))
+                    host.setdefault(label, {}).setdefault(name, []).append(_host_us(fn, n))
+                    split = kernel_us.setdefault(label, {}).setdefault(name, {})
+                    device.setdefault(label, {}).setdefault(name, []).append(
+                        device_us_per_call(fn, n, split))
                     if error is not None:
                         errors.setdefault(label, {})[name] = error()
             finally:  # the other library runs its own build (the decode runs both)
                 lib._lib = saved[lib]
                 WRAPPERS[lib] = own[lib]
+    vh_widths = {f"G={G}": _vocab_head_by_block_n(G, h, w, b) for G in (128, 640)}
+    decode_bf16 = None if args.against is None else _decode_turns(builds, against_mods)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "us_per_call": result,
+                      "host_us_per_call": host, "decode_bf16_beam5_ms_turns": decode_bf16,
                       "device_us_per_call": device, "device_us_by_kernel_two_runs": kernel_us,
                       "max_abs_err_vs_float64": errors, "qmatmul_bound_and_library": qmm_reference,
+                      "vocab_head_device_us_by_block_n": vh_widths,
                       "registers": registers}), flush=True)
 
 
@@ -389,6 +499,34 @@ def _by_block_n(call) -> dict:
             out[bn] = device_us_per_call(call, 20)
     finally:
         qmatmul.qmatmul_plan = chosen
+    return out
+
+
+def _forced_scan(xw, w_hh, units: int, groups: int, boxes: int):
+    """lstm_scan on the plan `_ring` makes at (units, groups, boxes) in
+    place of lstm_scan_plan's choice."""
+    chosen = lstm_scan.lstm_scan_plan
+    lstm_scan.lstm_scan_plan = lambda B, H, **kw: lstm_scan._ring(B, H, units, groups, boxes)
+    try:
+        return lstm_scan.lstm_scan(xw, w_hh)
+    finally:
+        lstm_scan.lstm_scan_plan = chosen
+
+
+def _vocab_head_by_block_n(G: int, h, w, b) -> dict:
+    """Device microseconds of the bf16 vocab head at G rows for each tile
+    width of the persistent kernel (`_wgmma_plan` in place of the plan's
+    choice)."""
+    chosen = vocab_head.vocab_head_plan
+    hg = h[:G].contiguous()
+    out = {}
+    try:
+        for bn in vocab_head.WGMMA_BLOCK_NS:
+            vocab_head.vocab_head_plan = (  # noqa: E731
+                lambda G, H, V, dt, n_sm=vocab_head.N_SM, bn=bn: vocab_head._wgmma_plan(G, V, bn, n_sm))
+            out[bn] = device_us_per_call(lambda: vocab_head.vocab_head_topk(hg, w, b, 5), 20)
+    finally:
+        vocab_head.vocab_head_plan = chosen
     return out
 
 

@@ -38,7 +38,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from dlsg_tpu_torch.kernels._build import ERROR_STRING, CudaLibrary
+from dlsg_tpu_torch.kernels._build import ERROR_STRING, CudaLibrary, cached, sm_count
 from dlsg_tpu_torch.kernels.lstm_scan import N_SM
 
 K_ALIGN = 32  # Kp = K rounded up to this; must match K_ALIGN in csrc/qmatmul.cu
@@ -174,24 +174,6 @@ _SCRATCH: "OrderedDict[tuple, tuple]" = OrderedDict()
 _LOCK = threading.Lock()
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _cached(cache: OrderedDict, key, make):
-    """cache[key], made by make() when missing; least recently used out past
-    CACHE_SIZE."""
-    hit = cache.get(key)
-    if hit is None:
-        hit = cache[key] = make()
-        if len(cache) > CACHE_SIZE:
-            cache.popitem(last=False)
-    else:
-        cache.move_to_end(key)
-    return hit
-
-
 def _encode_map(lib, ptr: int, rows: int, Kp: int, weight: bool) -> ctypes.Array:
     """The TMA map of an int8 [rows, Kp] tensor at `ptr`: the scratch xq's,
     or a weight's (its boxes differ; csrc/qmatmul.cu)."""
@@ -208,7 +190,7 @@ def _scratch(lib, dev: torch.device, stream: int, G: int, Kp: int):
         sx = torch.empty(G, device=dev, dtype=torch.float32)
         return xq, sx, _encode_map(lib, xq.data_ptr(), G, Kp, weight=False)
 
-    return _cached(_SCRATCH, (dev.index, stream, G, Kp), make)
+    return cached(_SCRATCH, (dev.index, stream, G, Kp), make, CACHE_SIZE)
 
 
 def qmatmul(x: torch.Tensor, qt: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -238,14 +220,14 @@ def qmatmul(x: torch.Tensor, qt: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.float()
     x = x.contiguous()
-    plan = qmatmul_plan(G, K, N, _sm_count(dev.index))
+    plan = qmatmul_plan(G, K, N, sm_count(dev.index))
     lib = LIBRARY.load()
     # the handle of torch.cuda.current_stream(dev), without building a Stream
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with _LOCK:
         xq, sx, a_map = _scratch(lib, dev, stream, G, Kp)
-        b_map = _cached(WEIGHT_MAPS, (qt.data_ptr(), N, Kp),
-                        lambda: _encode_map(lib, qt.data_ptr(), N, Kp, weight=True))
+        b_map = cached(WEIGHT_MAPS, (qt.data_ptr(), N, Kp),
+                       lambda: _encode_map(lib, qt.data_ptr(), N, Kp, weight=True), CACHE_SIZE)
         args = (x.data_ptr(), x.dtype == torch.bfloat16, a_map, b_map, s.data_ptr(),
                 xq.data_ptr(), sx.data_ptr(), out.data_ptr(), G, K, N, plan.block_n, plan.blocks,
                 stream)

@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from dlsg_tpu_torch.config import DLSGConfig
+from dlsg_tpu_torch.kernels.vocab_head import aligned_rows
 from dlsg_tpu_torch.models.layers import AttentionShare
 from dlsg_tpu_torch.ops import quant as quant_ops
 from dlsg_tpu_torch.ops.linear import LN_EPS, Dense, Dropout, Embed, LayerNorm, matmul_f32
@@ -311,8 +312,12 @@ class Decoder(nn.Module):
     def vocab_head_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(kernel [Hd, V] in compute dtype, bias [V] fp32) for the fused head,
         fetched once per decode; this rank's columns when the head is split
-        over the model axis (`vocab_head_shard`)."""
+        over the model axis (`vocab_head_shard`). A bf16 kernel is laid out
+        in rows the vocab head kernel's TMA reads for any V (`aligned_rows`:
+        a [Hd, V] view of rows ceil8(V) long)."""
         wr = self.step.word_restore
+        if self.cfg.cdtype == torch.bfloat16:
+            return aligned_rows(wr.weight.t(), torch.bfloat16), wr.bias.float()
         return wr.kernel(self.cfg.cdtype), wr.bias.float()
 
     def vocab_head_shard(self) -> Optional[Tuple[int, int]]:

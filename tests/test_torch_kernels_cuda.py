@@ -37,9 +37,12 @@ from dlsg_tpu_torch.kernels.lstm_scan import LIBRARY as LSTM_LIB
 from dlsg_tpu_torch.kernels.qmatmul import LIBRARY as QMM_LIB
 from dlsg_tpu_torch.kernels.qmatmul import BLOCK_NS, K_ALIGN, qmatmul_plan
 from dlsg_tpu_torch.kernels.lstm_scan import lstm_scan, lstm_scan_plain, lstm_scan_plan, max_hidden
+from dlsg_tpu_torch.kernels import lstm_scan as lstm_scan_mod
+from dlsg_tpu_torch.kernels import vocab_head as vocab_head_mod
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB
 from dlsg_tpu_torch.kernels.vocab_head import (
     ROUTE_LAUNCHES,
+    WGMMA_BLOCK_NS,
     vocab_head_plan,
     vocab_head_topk,
     vocab_head_topk_plain,
@@ -109,6 +112,40 @@ def test_lstm_scan_kernel_shapes(card, B, T, H, reverse):
     _check_lstm_scan(card, B, T, H, reverse, scale=1.0 / H**0.5)
 
 
+def test_lstm_scan_is_bitwise_repeatable(card):
+    """The encoder's shapes (B = 128, T = 26, H = 1024), both directions, ten
+    runs each: every run equals the first bitwise. h_t is written by
+    ordinary stores and read on the next step by TMA (the async proxy), so
+    a missing proxy fence or a grid barrier that lets a block run ahead
+    shows as a stale h_{t-1}, now and then and at this size, not at small
+    ones."""
+    B, T, H = 128, 26, 1024
+    xw = (_rand(B, T, 4 * H, seed=5) * 0.5).to(card)
+    w = torch.from_numpy(np.linalg.qr(np.random.default_rng(6).normal(size=(4 * H, H)))[0].T
+                         .astype(np.float32)).to(card)
+    for reverse in (False, True):
+        first = lstm_scan(xw, w, reverse=reverse)
+        for _ in range(9):
+            assert torch.equal(lstm_scan(xw, w, reverse=reverse), first)
+        torch.testing.assert_close(first, lstm_scan_plain(xw, w, reverse=reverse), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("units,groups,boxes", [(8, 1, 2), (16, 1, 2), (16, 2, 2), (16, 2, 1)])
+def test_lstm_scan_forced_plans_agree(card, monkeypatch, units, groups, boxes):
+    """Each launch the breakdown times computes the same function: one group
+    reading the whole batch or two reading 64 rows each, stages of one or
+    two chunks (the plan `_ring` makes, in place of the plan's choice)."""
+    monkeypatch.setattr(lstm_scan_mod, "lstm_scan_plan",
+                        lambda B, H, **kw: lstm_scan_mod._ring(B, H, units, groups, boxes))
+    xw = _rand(128, 6, 4096, seed=3).to(card)
+    w = _rand(1024, 4096, seed=4, scale=1.0 / 32).to(card)
+    before = LSTM_LIB.launches
+    got = lstm_scan(xw, w)
+    torch.cuda.synchronize()
+    assert LSTM_LIB.launches == before + 1
+    torch.testing.assert_close(got, lstm_scan_plain(xw, w), rtol=0, atol=1e-4)
+
+
 def test_lstm_scan_largest_hidden_size(card):
     """The largest H the plan accepts runs (16 units a block, 227 KB of
     shared memory); one above it raises ValueError."""
@@ -125,12 +162,17 @@ def test_lstm_scan_largest_hidden_size(card):
 def test_plans_state_the_kernels_shared_memory(card):
     """The Python plans and the compiled sources agree on shared memory."""
     lstm = LSTM_LIB.load()
-    for B, H in [(128, 1024), (37, 40), (130, 36), (640, 1024), (8, 1552)]:
+    for B, H in [(128, 1024), (37, 40), (130, 36), (640, 1024), (8, 1552), (8, 1600), (2048, 1024)]:
         plan = lstm_scan_plan(B, H, n_sm=_n_sm(card))
-        assert lstm.lstm_scan_smem_bytes(B, H, plan.units, plan.stages) == plan.smem_bytes
+        assert lstm.lstm_scan_smem_bytes(B, H, plan.units, plan.groups, plan.stages,
+                                         plan.boxes) == plan.smem_bytes
     vocab = VOCAB_LIB.load()
-    assert vocab.vocab_head_tc_smem_bytes() == vocab_head_plan(640, 10000, torch.bfloat16).smem_bytes
-    assert vocab.vocab_head_tf32x3_smem_bytes() == vocab_head_plan(640, 10000, torch.float32).smem_bytes
+    ragged = vocab_head_plan(130, 200, 2177, torch.bfloat16)
+    assert vocab.vocab_head_wgmma_smem_bytes(ragged.block_n) == ragged.smem_bytes
+    assert vocab.vocab_head_tf32x3_smem_bytes() == vocab_head_plan(640, 1536, 10000, torch.float32).smem_bytes
+    for bn in WGMMA_BLOCK_NS:
+        plan = vocab_head_mod._wgmma_plan(640, 10000, bn, _n_sm(card))
+        assert vocab.vocab_head_wgmma_smem_bytes(bn) == plan.smem_bytes
 
 
 @pytest.mark.parametrize(
@@ -144,14 +186,15 @@ def test_plans_state_the_kernels_shared_memory(card):
      (5, 72, 130, 1, torch.float32)],
 )
 def test_vocab_head_kernel_matches_plain(card, G, H, V, k, dtype):
-    """bf16 w takes the bf16 tensor-core tiles, fp32 w the TF32x3 tiles. Off
-    the tile edges: G = 130, 5, 200 (tile 128), H = 200, 72 (k-tile 32), V =
-    2177, 130, 1000 (tile 128); V = 2177 has w rows that are not 16-byte
-    aligned (bf16 and fp32), H = 200 h rows that are not (bf16)."""
+    """bf16 w takes the persistent wgmma kernel (rows TMA cannot read
+    copied into rows it can), fp32 w the TF32x3 tiles. Off the tile edges:
+    G = 130, 5, 200 (tile 128), H = 200, 72 (k-tiles 32 and 64), V = 2177,
+    130, 1000 (tiles 64 and 128); V = 2177 has w rows that are not 16-byte
+    aligned (bf16 and fp32), V = 130 neither (bf16)."""
     h = _rand(G, H, seed=G).to(card)
     w = (_rand(H, V, seed=H) / H**0.5).to(card, dtype)
     b = _rand(V, seed=V).to(card)
-    route = vocab_head_plan(G, V, dtype).route
+    route = vocab_head_plan(G, H, V, dtype, n_sm=_n_sm(card)).route
     for normalize in (True, False):
         before, route_before = VOCAB_LIB.launches, ROUTE_LAUNCHES[route]
         vals, ids = vocab_head_topk(h, w, b, k, normalize=normalize)
@@ -163,6 +206,110 @@ def test_vocab_head_kernel_matches_plain(card, G, H, V, k, dtype):
         logits = h.to(dtype).float() @ w.float() + b
         gap = (logits.gather(1, ids) - logits.gather(1, pi)).abs()
         assert bool((gap[ids != pi] <= 1e-4).all())
+
+
+def _vocab_head_on_route(card, h, w, b, k, route, **kw):
+    """One call, which must launch once on `route`, held to the plain
+    version: values within 1e-4, ids equal but at near-ties (1e-4)."""
+    before, on_route = VOCAB_LIB.launches, ROUTE_LAUNCHES[route]
+    out = vocab_head_topk(h, w, b, k, **kw)
+    torch.cuda.synchronize()
+    assert (VOCAB_LIB.launches, ROUTE_LAUNCHES[route]) == (before + 1, on_route + 1)
+    want = vocab_head_topk_plain(h, w, b, k, **kw)
+    torch.testing.assert_close(out[0], want[0], rtol=0, atol=1e-4)
+    logits = h.to(w.dtype).float() @ w.float() + b
+    gap = (logits.gather(1, out[1]) - logits.gather(1, want[1])).abs()
+    assert bool((gap[out[1] != want[1]] <= 1e-4).all())
+    if kw.get("return_lse"):
+        torch.testing.assert_close(out[2], want[2], rtol=0, atol=1e-4)
+    return out
+
+
+@pytest.mark.parametrize("block_n", WGMMA_BLOCK_NS)
+@pytest.mark.parametrize("V", [10000, 5000, 264])
+@pytest.mark.parametrize("G", [1, 128, 130, 640])
+def test_vocab_head_persistent_walk(card, monkeypatch, G, V, block_n):
+    """The persistent kernel at each tile width: one row tile (G = 1, 128),
+    a ragged second one (130) and five (640, the beam step), against V =
+    10 000 (the head: 79 or 157 vocab tiles, several waves of blocks), 5 000
+    (a rank's half of it) and 264 (fewer tiles than SMs, the last one ragged),
+    with the row logsumexp returned."""
+    monkeypatch.setattr(vocab_head_mod, "vocab_head_plan",
+                        lambda G, H, V, dt, n_sm=132: vocab_head_mod._wgmma_plan(G, V, block_n, n_sm))
+    H = 1536
+    plan = vocab_head_mod.vocab_head_plan(G, H, V, torch.bfloat16, n_sm=_n_sm(card))
+    assert (plan.route, plan.block_n) == ("wgmma", block_n)
+    assert plan.blocks == min(plan.tiles[0] * plan.tiles[1], _n_sm(card))
+    h = torch.tanh(_rand(G, H, seed=G + V)).to(card)
+    w = (_rand(H, V, seed=V) * (2.0 / (H + V)) ** 0.5).to(card, torch.bfloat16)
+    b = (_rand(V, seed=V + 1) * 0.01).to(card)
+    _vocab_head_on_route(card, h, w, b, 5, "wgmma", return_lse=True)
+
+
+@pytest.mark.parametrize(
+    "G,H,V,dtype,route",
+    [(640, 1536, 10000, torch.bfloat16, "wgmma"),  # the beam step
+     (128, 1536, 10000, torch.bfloat16, "wgmma"),  # the first beam step, greedy
+     (640, 1536, 5000, torch.bfloat16, "wgmma"),  # one rank's columns on the model axis
+     (640, 1536, 9999, torch.bfloat16, "wgmma"),  # the beam step, a vocabulary of any size
+     (130, 200, 2177, torch.bfloat16, "wgmma"),  # w rows not 16-byte aligned
+     (5, 60, 136, torch.bfloat16, "wgmma"),  # h rows not 16-byte aligned
+     (640, 1536, 10000, torch.float32, "tf32x3")],
+)
+def test_vocab_head_route_by_shape(card, G, H, V, dtype, route):
+    """The plan picks the route from w's dtype, and the launch goes there:
+    every bf16 shape on the persistent kernel (TMA reads 16-byte row
+    pitches: h and w whose rows are not are copied into such rows)."""
+    assert vocab_head_plan(G, H, V, dtype, n_sm=_n_sm(card)).route == route
+    h = _rand(G, H, seed=7).to(card)
+    w = (_rand(H, V, seed=8) / H**0.5).to(card, dtype)
+    _vocab_head_on_route(card, h, w, _rand(V, seed=9).to(card), 5, route)
+
+
+def test_vocab_head_wgmma_takes_unaligned_views(card):
+    """h and w views that start off a 16-byte boundary (TMA reads from
+    aligned addresses) are copied, not refused, and give the same result."""
+    G, H, V = 64, 256, 1000
+    hbuf = _rand(G * H + 1, seed=3).to(card, torch.bfloat16)
+    wbuf = (_rand(H * V + 3, seed=4) / H**0.5).to(card, torch.bfloat16)
+    h, w = hbuf[1:].view(G, H), wbuf[3:].view(H, V)
+    assert h.data_ptr() % 16 and w.data_ptr() % 16
+    b = _rand(V, seed=5).to(card)
+    vals, ids = _vocab_head_on_route(card, h, w, b, 8, "wgmma")
+    v2, i2 = vocab_head_topk(h.clone(), w.clone(), b, 8)
+    assert torch.equal(vals, v2) and torch.equal(ids, i2)
+
+
+@pytest.mark.parametrize("G,V", [(640, 9999), (128, 9999), (640, 4999), (130, 2177)])
+def test_vocab_head_reads_the_decoders_pitched_w(card, G, V):
+    """w as `Decoder.vocab_head_weights` lays it out (`aligned_rows`: a
+    [H, V] view of rows ceil8(V) long) runs on its own rows, no copy: its
+    TMA map is keyed by its pitch; the result equals the contiguous w's
+    bitwise (which is copied into such rows on each call)."""
+    H = 1536
+    h = torch.tanh(_rand(G, H, seed=G + V)).to(card)
+    w = (_rand(H, V, seed=V) * (2.0 / (H + V)) ** 0.5).to(card, torch.bfloat16)
+    b = (_rand(V, seed=V + 1) * 0.01).to(card)
+    wp = vocab_head_mod.aligned_rows(w)
+    assert wp.stride(0) == -(-V // 8) * 8 and not wp.is_contiguous()
+    got = _vocab_head_on_route(card, h, wp, b, 5, "wgmma", return_lse=True)
+    assert (wp.data_ptr(), H, V, wp.stride(0)) in vocab_head_mod.WEIGHT_MAPS
+    for a, c in zip(got, vocab_head_topk(h, w, b, 5, return_lse=True)):
+        assert torch.equal(a, c)
+
+
+def test_vocab_head_wgmma_ties_go_to_lowest_id(card):
+    """Ties on the persistent kernel's route: equal logits in one thread's
+    columns, across the 4 threads of a quad, across vocab tiles and at
+    zero; the lowest id wins everywhere, as lax.top_k."""
+    G, H, V = 130, 64, 1024
+    h = torch.zeros(G, H, device=card, dtype=torch.bfloat16)
+    w = torch.zeros(H, V, device=card, dtype=torch.bfloat16)
+    b = torch.zeros(V, device=card)
+    b[[900, 6, 7, 2, 200, 129]] = 1.0
+    vals, ids = _vocab_head_on_route(card, h, w, b, 8, "wgmma", normalize=False)
+    assert ids.tolist() == [[2, 6, 7, 129, 200, 900, 0, 1]] * G
+    assert vals[0].tolist() == [1.0] * 6 + [0.0, 0.0]
 
 
 def test_vocab_head_fp32_keeps_fp32_accuracy(card):
@@ -224,6 +371,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         vocab_head_topk(h, w.to(torch.float16), b, 3)
     with pytest.raises(ValueError):
         vocab_head_topk(h.t(), torch.zeros(4, 20, device=card), b, 3)  # non-contiguous h
+    with pytest.raises(ValueError):  # bf16 w whose rows are not contiguous
+        vocab_head_topk(h, torch.zeros(20, 8, device=card, dtype=torch.bfloat16).t(), b, 3)
     with pytest.raises(ValueError):
         lstm_scan(torch.zeros(2, 3, 16, device=card, dtype=torch.bfloat16), torch.zeros(4, 16, device=card))
     with pytest.raises(ValueError):
