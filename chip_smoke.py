@@ -17,10 +17,9 @@ line per phase:
 2. build: seconds to build every kernel (one nvcc per source, in parallel,
    with g++ building the scorer library beside them), ptxas's registers per
    kernel, and the tensor-core instructions `cuobjdump` finds in each
-   library: warpgroup wgmma (HGMMA) in the vocab head's (its bf16 route),
-   beside mma.sync (HMMA) for its fp32 tiles; HGMMA and no
-   HMMA in the LSTM scan's; qmatmul's s8 products must be warpgroup wgmma,
-   IGMMA, with no IMMA mma.sync left;
+   library: warpgroup wgmma (HGMMA) and no mma.sync (HMMA) in the vocab
+   head's (both routes) and in the LSTM scan's; qmatmul's s8 products must
+   be warpgroup wgmma, IGMMA, with no IMMA mma.sync left;
 3. kernel checks: each kernel against its plain PyTorch version at the
    shapes the serving path gives it (MSR-VTT widths, batch 128, beam 5); the
    LSTM scan in both directions, each also run REPEATS times and bitwise
@@ -30,10 +29,14 @@ line per phase:
    path, at G = 640 and at the first beam step's G = 128, each checked and
    timed with the wrapper's host time a call, and at G = 640 against a
    9 999-word vocabulary in the decoder's layout, rows of ceil8(V)) and
-   fp32 w (TF32x3 tiles: three TF32 products of a hi/lo split),
-   the fp32 form's top-k logits also held within max(3 x the plain
-   fp32 product's error, 2e-6) of a float64 product, which one TF32 pass
-   fails; qmatmul (the int8 product) at the int8 decode's three products
+   fp32 w (the same kernel's TF32 route: three TF32 wgmma products of a
+   hi/lo split, w split once per decode by the split kernel, which is
+   checked bitwise against its plain version and timed with its bytes), at
+   G = 640 and 128 (the bound counts fp32 w's bytes once; the split's hi
+   and lo, which this design reads instead, stand beside it), the fp32
+   form's top-k logits also held within max(3 x
+   the plain fp32 product's error, 2e-6) of a float64 product, which one
+   TF32 pass fails; qmatmul (the int8 product) at the int8 decode's three products
    (the quantized Wq 2860 x 4096, Wl 4608 x 6144 and Wv 1536 x 10000 of the
    serving weights) at G = 128 and 640 rows, bitwise its plain version,
    with its library yardstick (row quantize + torch._int_mm + rescale,
@@ -48,7 +51,9 @@ line per phase:
    form too) read over that run; then the
    decode time of a 128-clip batch already on the card, and the share of
    tokens that agree with the same decode through the plain versions. It
-   must be >= 99% at fp32 compute (the vocab head on its TF32x3 tiles), and
+   must be >= 99% at fp32 compute (the vocab head on its TF32 route, with
+   each kernel's launches over that decode: the split once, K1 every beam
+   step), and
    at bf16 with the vocab head swapped alone. At bf16 with both swapped it
    must not fall more than 2 points below the plain decode's agreement with
    itself under a 1e-6 input perturbation: random weights give near-tied
@@ -213,7 +218,7 @@ line per phase:
    and fp32 against the whole head's K1 decode of the same weights (the
    one-process decode, run in the same rank so that both share its cuBLAS
    set-up): token agreement >= 99% each, K1 launched once a beam step on
-   each rank on the dtype's route (wgmma, tf32x3), and one beam
+   each rank on the dtype's route (wgmma, wgmma_tf32), and one beam
    step's split K1 + merge equal to the whole K1 at G = 640 (ids, values
    within KERNEL_TOL); it also gives the whole decode's own agreement under
    a 1e-6 input perturbation. (c) Captioner(mesh=) on a (data 2) mesh at
@@ -225,11 +230,13 @@ line per phase:
    following, which must answer caption()'s captions and stop the
    follower;
 7. a `timing` line (each phase's seconds and the script's), the
-   `kernels` line (times, bounds, launches on each path: serving,
-   two_pass, server, int8, learning, train, remat, graph_variants,
-   trainer, baselines, cli_serve, data_parallel, model_axis; K2 and K1's
-   bf16 (wgmma) route must launch on the baselines path, qmatmul on the int8
-   and learning paths), the nvidia-smi line, and as the last line
+   `kernels` line (times, bounds, launches on each path: serving, the fp32
+   agreement decode, two_pass, server, int8, learning, train, remat,
+   graph_variants, trainer, baselines, cli_serve, data_parallel,
+   model_axis; K2 and K1's bf16 (wgmma) route must launch on the baselines
+   path, K1's fp32 (wgmma_tf32) route and the TF32 split on the fp32
+   decode, cli_serve and model_axis paths, qmatmul on the int8 and
+   learning paths), the nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -277,7 +284,8 @@ from dlsg_tpu_torch.kernels.qmatmul import qmatmul_plan  # noqa: E402
 from dlsg_tpu_torch.kernels.breakdown import device_us_per_call, int_mm_library  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import LIBRARY as VOCAB_LIB  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import ROUTE_LAUNCHES  # noqa: E402
-from dlsg_tpu_torch.kernels.vocab_head import aligned_rows, vocab_head_plan  # noqa: E402
+from dlsg_tpu_torch.kernels.vocab_head import prepare_head, split_head  # noqa: E402
+from dlsg_tpu_torch.kernels.vocab_head import tf32_split_plain, vocab_head_plan  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk  # noqa: E402
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk_plain  # noqa: E402
 from dlsg_tpu_torch.config import tiny_test_config  # noqa: E402
@@ -327,6 +335,10 @@ KERNEL_TOL = 1e-3
 # rows it can): the persistent TMA + wgmma kernel
 K1_BF16 = "wgmma"
 K1_BF16_KEY = f"vocab_head[{K1_BF16}]"
+# ... for fp32 w: the same kernel's TF32 route, on w split once per decode
+K1_FP32 = "wgmma_tf32"
+K1_FP32_KEY = f"vocab_head[{K1_FP32}]"
+SPLIT_KEY = "vocab_head[tf32_split]"
 REPEATS = 10  # runs of K2 at the serving shape that must agree bitwise
 # the fp32 vocab head against a float64 product: within this many times the
 # plain fp32 product's error, or F64_FLOOR if that is larger (one TF32 pass
@@ -535,11 +547,9 @@ def phase_build() -> float:
         raise AssertionError(f"a kernel library has no tensor-core instruction: {mma}")
     if not mma[QMM_LIB.name]["IGMMA"] or mma[QMM_LIB.name]["IMMA"]:
         raise AssertionError(f"qmatmul's s8 products must be wgmma (IGMMA), no mma.sync: {mma}")
-    if not mma[VOCAB_LIB.name]["HGMMA"] or not mma[VOCAB_LIB.name]["HMMA"]:
-        raise AssertionError(f"the vocab head's bf16 route must be wgmma (HGMMA) beside its "
-                             f"fp32 mma.sync (HMMA) tiles: {mma}")
-    if not mma[LSTM_LIB.name]["HGMMA"] or mma[LSTM_LIB.name]["HMMA"]:
-        raise AssertionError(f"lstm_scan's products must be wgmma (HGMMA), no mma.sync: {mma}")
+    for lib in (VOCAB_LIB, LSTM_LIB):
+        if not mma[lib.name]["HGMMA"] or mma[lib.name]["HMMA"]:
+            raise AssertionError(f"{lib.name}'s products must be wgmma (HGMMA), no mma.sync: {mma}")
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas, "sass_mma": mma,
           "scorer_library_s": native_build["s"], "scorer_library": native.library_path().name})
     return native_build["s"]
@@ -592,11 +602,11 @@ def check_lstm_scan(cfg: DLSGConfig) -> dict:
     }
 
 
-def _k1_against_plain(h, w, b, k: int, route: str) -> dict:
-    """One K1 call against vocab_head_topk_plain on the same inputs: values
-    within KERNEL_TOL, ids that differ only at near-ties (logits within
-    KERNEL_TOL of each other)."""
-    vals, ids = vocab_head_topk(h, w, b, k)
+def _k1_against_plain(h, w, head, b, k: int, route: str) -> dict:
+    """One K1 call on `head` (`prepare_head` of w) against
+    vocab_head_topk_plain on w: values within KERNEL_TOL, ids that differ
+    only at near-ties (logits within KERNEL_TOL of each other)."""
+    vals, ids = vocab_head_topk(h, head, b, k)
     torch.cuda.synchronize()
     pv, pi = vocab_head_topk_plain(h, w, b, k)
     err = float((vals - pv).abs().max())
@@ -612,36 +622,71 @@ def _k1_against_plain(h, w, b, k: int, route: str) -> dict:
     return {"max_abs_err": err, "ids_differ": int(differ.sum())}
 
 
-def _k1_times(h, w, b, k: int, peak: float, passes: int) -> dict:
-    """K1's ms (L2 flushed), its plain version's and the library call's
-    (torch.mm + bias + torch.topk + torch.logsumexp), and its bound: the
-    passes x 2GHV operations at `peak` or the bytes, whichever is larger;
-    its device time without host time (L2 warm) and the wrapper's host time
-    a call (`host_us`: plan, map of h, scratch, the two launches)."""
+def _k1_f64(h, w, head, b, k: int, route: str) -> dict:
+    """fp32 K1's accuracy: its sorted top-k logits on `head` against a
+    float64 product's of w, within max(F64_FACTOR x the plain fp32
+    product's error, F64_FLOOR)."""
+    want = torch.topk(h.double() @ w.double() + b.double(), k).values
+    f64_err = float((vocab_head_topk(h, head, b, k, normalize=False)[0].double() - want).abs().max())
+    plain_f64_err = float((vocab_head_topk_plain(h, w, b, k, normalize=False)[0].double() - want).abs().max())
+    f64_tol = max(F64_FACTOR * plain_f64_err, F64_FLOOR)
+    if not f64_err <= f64_tol:
+        raise AssertionError(
+            f"vocab_head_topk ({route}, G = {h.shape[0]}) is {f64_err} from a float64 product, "
+            f"above {f64_tol} (the plain fp32 product: {plain_f64_err})"
+        )
+    return {"f64_err": f64_err, "plain_f64_err": plain_f64_err, "f64_tol": f64_tol}
+
+
+def _k1_times(h, w, head, b, k: int, peak: float, passes: int) -> dict:
+    """K1's ms on `head` (`prepare_head` of w; L2 flushed), its plain
+    version's and the library call's (torch.mm + bias + torch.topk +
+    torch.logsumexp) on w, and its bound: the passes x 2GHV operations at
+    `peak` or the bytes of the function (h, w, b once, the outputs),
+    whichever is larger, with both; the bytes this design moves where they
+    differ (fp32: the split's hi and lo in w's place, `design_bytes`, and
+    their time at the memory rate), beside the bound, not in it; its device
+    time without host time (L2 warm) and the wrapper's host time a call
+    (`host_us`: plan, map of h, scratch, the two launches)."""
     G, H = h.shape
     V = w.shape[1]
+    w_bytes = w.numel() * w.element_size()
 
     def library():
         lg = matmul_f32(h.to(w.dtype), w) + b  # bf16: torch.mm(out_dtype=float32)
         return torch.topk(lg, k), torch.logsumexp(lg, dim=-1)
 
-    nbytes = h.numel() * 4 + w.numel() * w.element_size() + b.numel() * 4 + G * k * (4 + 8)
-    bms, by = bound_ms(passes * 2.0 * G * H * V, peak, nbytes)
-    return {
-        "ms": time_ms(lambda: vocab_head_topk(h, w, b, k)),
+    ops = passes * 2.0 * G * H * V
+    nbytes = h.numel() * 4 + w_bytes + b.numel() * 4 + G * k * (4 + 8)
+    bms, by = bound_ms(ops, peak, nbytes)
+    out = {
+        "ms": time_ms(lambda: vocab_head_topk(h, head, b, k)),
         "plain_ms": time_ms(lambda: vocab_head_topk_plain(h, w, b, k)),
-        "bound_ms": bms, "bound_by": by, "library_ms": time_ms(library),
-        "device_ms": device_ms(lambda: vocab_head_topk(h, w, b, k)),
-        "host_us": host_us(lambda: vocab_head_topk(h, w, b, k)),
+        "bound_ms": bms, "bound_by": by, "bound_ms_operations": 1e3 * ops / peak,
+        "bound_ms_bytes": 1e3 * nbytes / PEAK_BYTES, "library_ms": time_ms(library),
+        "device_ms": device_ms(lambda: vocab_head_topk(h, head, b, k)),
+        "host_us": host_us(lambda: vocab_head_topk(h, head, b, k)),
     }
+    if head.parts is not None:
+        design = nbytes - w_bytes + head.parts.numel() * 4
+        out.update(design_bytes=design, design_bytes_ms=1e3 * design / PEAK_BYTES)
+    return out
+
+
+def _plan(G: int, H: int, dtype) -> dict:
+    plan = vocab_head_plan(G, H, VOCAB, dtype)
+    return {"block_n": plan.block_n, "stages": plan.stages, "tiles": list(plan.tiles),
+            "blocks": plan.blocks}
 
 
 def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
     """K1 at the beam step's shapes: G=640 (128 x beam 5), H=1536,
-    V=10000, k=5, against vocab_head_topk_plain. bf16 w takes the
-    persistent TMA + wgmma kernel (the serving path), checked and timed also
-    at the first beam step's G = 128; fp32 w the TF32x3 tiles, whose top-k
-    logits are also held against a float64 product."""
+    V=10000, k=5, against vocab_head_topk_plain, and at the first beam
+    step's G = 128, each checked and timed, on w prepared once
+    (`prepare_head`, as the decoder does once per decode). bf16 w takes the
+    persistent TMA + wgmma kernel (the serving path); fp32 w its TF32 route
+    on w split into hi and lo, whose top-k logits are also held against a
+    float64 product at both G."""
     G, H, k = BATCH * BEAM, cfg.decode_hidden_size, BEAM
     route = vocab_head_plan(G, H, VOCAB, w_dtype).route
     g = torch.Generator().manual_seed(SEED + 1)
@@ -649,46 +694,32 @@ def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
     std = (2.0 / (H + VOCAB)) ** 0.5  # xavier-normal, as word_restore
     w = (torch.randn(H, VOCAB, generator=g) * std).to(w_dtype).to(DEVICE)
     b = (torch.randn(VOCAB, generator=g) * 0.01).to(DEVICE)
-    checked = _k1_against_plain(h, w, b, k, route)
+    h128 = h[:BATCH].contiguous()  # the first beam step: one beam per clip
     fp32 = w_dtype == torch.float32
-    extra = {}
-    if fp32:  # fp32 accuracy: the sorted top-k logits against a float64 product's
-        want = torch.topk(h.double() @ w.double() + b.double(), k).values
-        f64_err = float((vocab_head_topk(h, w, b, k, normalize=False)[0].double() - want).abs().max())
-        plain_f64_err = float(
-            (vocab_head_topk_plain(h, w, b, k, normalize=False)[0].double() - want).abs().max()
-        )
-        f64_tol = max(F64_FACTOR * plain_f64_err, F64_FLOOR)
-        if not f64_err <= f64_tol:
-            raise AssertionError(
-                f"vocab_head_topk ({route}) is {f64_err} from a float64 product, above "
-                f"{f64_tol} (the plain fp32 product: {plain_f64_err})"
-            )
-        extra = {"f64_err": f64_err, "plain_f64_err": plain_f64_err, "f64_tol": f64_tol,
+    wk = prepare_head(w, w_dtype)  # as the decoder does once per decode
+    checked = _k1_against_plain(h, w, wk, b, k, route)
+    first = _k1_against_plain(h128, w, wk, b, k, route)
+    if fp32:
+        # three TF32 products (hi*lo, lo*hi, hi*hi) on the tensor cores
+        peak, passes = PEAK_TF32, 3
+        extra = {**_k1_f64(h, w, wk, b, k, route),
                  "bound_ms_fp32_cuda_core_rate": bound_ms(
                      2.0 * G * H * VOCAB, PEAK_FP32,
                      h.numel() * 4 + w.numel() * 4 + b.numel() * 4 + G * k * (4 + 8))[0]}
-        # three TF32 products (hi*lo, lo*hi, hi*hi) on the tensor cores
-        times = _k1_times(h, w, b, k, PEAK_TF32, 3)
-        design = ("a block per 128 x 128 tile, a cp.async ring, mma.sync m16n8k8 TF32 x 3 "
-                  "(hi/lo split of h and w), the logits tile staged for the top-k epilogue")
+        first.update(_k1_f64(h128, w, wk, b, k, route))
+        design = ("the persistent TMA + wgmma kernel's TF32 route: w split once into TF32 hi "
+                  "and lo (K-major, one 3-D TMA map), h split in registers from the ring, "
+                  "wgmma m64nBNk8 tf32 x 3 (hi*lo, lo*hi, hi*hi) into fresh accumulators each "
+                  "32-deep k-tile, added round-to-nearest; the bf16 route's epilogue, merge launch")
     else:
-        h128 = h[:BATCH].contiguous()  # the first beam step: one beam per clip
-        plan128 = vocab_head_plan(BATCH, H, VOCAB, w_dtype)
-        first = _k1_against_plain(h128, w, b, k, plan128.route)
-        t128 = _k1_times(h128, w, b, k, PEAK_BF16, 1)
-        plan = vocab_head_plan(G, H, VOCAB, w_dtype)
+        peak, passes = PEAK_BF16, 1
         # a vocabulary of any size (len(vocab) of a dataset): w in the
         # decoder's layout, rows of ceil8(V), read in place by TMA
         vr = VOCAB - 1
-        wr, br = aligned_rows(w[:, :vr]), b[:vr].contiguous()
-        ragged = _k1_against_plain(h, wr, br, k, route)
-        extra = {"g128": {**first, **t128, "block_n": plan128.block_n,
-                          "tiles": list(plan128.tiles), "blocks": plan128.blocks},
-                 f"v{vr}": {**ragged, "row_pitch": wr.stride(0),
-                            "ms": time_ms(lambda: vocab_head_topk(h, wr, br, k))},
-                 "block_n": plan.block_n, "tiles": list(plan.tiles), "blocks": plan.blocks}
-        times = _k1_times(h, w, b, k, PEAK_BF16, 1)
+        wr, br = prepare_head(w[:, :vr], w_dtype), b[:vr].contiguous()
+        ragged = _k1_against_plain(h, w[:, :vr], wr, br, k, route)
+        extra = {f"v{vr}": {**ragged, "row_pitch": wr.w.stride(0),
+                            "ms": time_ms(lambda: vocab_head_topk(h, wr, br, k))}}
         design = ("persistent warp-specialized: TMA (128-byte swizzle) into an mbarrier ring, "
                   "wgmma m64nBNk16 bf16 with transpose-B (w MN-major), two consumer "
                   "warpgroups, top-k and (max, sumexp) from the accumulators, merge launch")
@@ -696,9 +727,50 @@ def check_vocab_head(cfg: DLSGConfig, w_dtype: torch.dtype) -> dict:
         "name": f"vocab_head_topk[{route}]", "route": "cuda",
         "source": "dlsg_tpu_torch/csrc/vocab_head.cu",
         "replaces": "dlsg_tpu/ops/pallas/vocab_head.py:117",
-        "shapes": f"h [{G},{H}] fp32, w [{H},{VOCAB}] {'fp32' if fp32 else 'bf16'}, b [{VOCAB}], k={k}",
-        "design": design, **checked, "tolerance": KERNEL_TOL, **times, **extra,
+        "shapes": f"h [{G},{H}] fp32, w [{H},{VOCAB}] {'fp32, split' if fp32 else 'bf16'}, b [{VOCAB}], k={k}",
+        "design": design, **checked, "tolerance": KERNEL_TOL,
+        **_k1_times(h, w, wk, b, k, peak, passes), **_plan(G, H, w_dtype),
+        "g128": {**first, **_k1_times(h128, w, wk, b, k, peak, passes), **_plan(BATCH, H, w_dtype)},
+        **extra,
     }
+
+
+def check_tf32_split(cfg: DLSGConfig) -> dict:
+    """The split kernel on the decoder's fp32 head as the decode hands it
+    over once per decode (word_restore's weight [V, H] seen as w [H, V]),
+    with zeros, subnormals, infs and NaNs planted: bitwise its plain
+    version. Emits its per-decode time and bytes."""
+    H = cfg.decode_hidden_size
+    g = torch.Generator().manual_seed(SEED + 2)
+    weight = torch.randn(VOCAB, H, generator=g) * (2.0 / (H + VOCAB)) ** 0.5
+    flat = weight.view(-1)
+    flat[:4] = torch.tensor([0.0, -0.0, float("inf"), float("-inf")])
+    flat[4:8] = float("nan")
+    flat[8::1009] *= 2.0**-126  # subnormal
+    w = weight.to(DEVICE).t()
+    head = split_head(w)
+    torch.cuda.synchronize()
+    want = tf32_split_plain(w)
+    if not torch.equal(head.parts.view(torch.int32), want.view(torch.int32)):
+        differ = int((head.parts.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"the TF32 split differs from its plain version in {differ} values")
+    nbytes = w.numel() * 4 + head.parts.numel() * 4  # w read once, hi and lo written once
+    bms, by = bound_ms(0.0, PEAK_FP32, nbytes)
+    entry = {
+        "name": "tf32_split", "route": "cuda", "source": "dlsg_tpu_torch/csrc/vocab_head.cu",
+        "replaces": "dlsg_tpu/ops/pallas/vocab_head.py:117",
+        "shapes": f"w [{H},{VOCAB}] fp32 (a [{VOCAB},{H}] weight's transpose) -> hi, lo "
+                  f"[2,{VOCAB},{head.parts.shape[2]}]",
+        "design": "K1's fp32 preparation, once per decode: a 32 x 32 shared-memory transpose, "
+                  "TF32 round half away by an integer add and mask (NaN kept), lo of w - hi",
+        "max_abs_err": 0.0, "bitwise": True,
+        "ms": time_ms(lambda: split_head(w)), "plain_ms": time_ms(lambda: tf32_split_plain(w)),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "device_ms": device_ms(lambda: split_head(w)), "bytes_per_decode": head.parts.numel() * 4,
+    }
+    emit({"phase": "tf32_split", **{k: entry[k] for k in ("shapes", "ms", "device_ms", "bound_ms",
+                                                          "bytes_per_decode")}})
+    return entry
 
 
 def features(n: int, cfg: DLSGConfig, seed: int):
@@ -827,13 +899,19 @@ def phase_serving(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
     model32 = CapGnnModel(cfg32, VOCAB, device=DEVICE)
     model32.load_state_dict(captioner.model.state_dict())
     decode32 = make_decode_fn(model32, cfg32, beam_size=BEAM, device=DEVICE)
-    tf32x3_0 = ROUTE_LAUNCHES["tf32x3"]
+    before = read_launches()
     ids32 = decode32(fr128, rg128)
-    tf32x3_fp32_decode = ROUTE_LAUNCHES["tf32x3"] - tf32x3_0  # fp32 w: the TF32x3 tiles
+    torch.cuda.synchronize()
+    fp32_launches = {key: n - before[key] for key, n in read_launches().items()}
+    # fp32 w: the head split once, K1 on its TF32 route every beam step
+    if not (fp32_launches[K1_FP32_KEY] == fp32_launches["vocab_head"] >= 1
+            and fp32_launches[SPLIT_KEY] == 1):
+        raise AssertionError(f"the fp32 decode did not run K1's {K1_FP32} route on a split head: "
+                             f"{fp32_launches}")
     agree_fp32 = agreement(ids32, decode_plain(decode32, fr128, rg128))
     if agree_fp32 < TOKEN_AGREEMENT_MIN:
         raise AssertionError(f"fp32 token agreement with the plain versions {agree_fp32} < 0.99")
-    # the fp32 decode with the fused vocab head on (TF32x3 tiles) and off
+    # the fp32 decode with the fused vocab head on (its TF32 route) and off
     # (torch.mm + top-k + logsumexp), in turns: on, off, off, on
     decode32_off = make_decode_fn(model32, replace(cfg32, use_fused_vocab_head="off"),
                                   beam_size=BEAM, device=DEVICE)
@@ -869,7 +947,7 @@ def phase_serving(cfg: DLSGConfig, vocab: Vocabulary, params: dict) -> dict:
         "phase": "serving", "config": "msr-vtt, bf16, use_pallas_lstm, fused vocab head",
         "vocab": VOCAB, "beam": BEAM, "buckets": captioner.bucket_sizes(),
         "warmup_s": warmup_s, "requests": list(REQUESTS), "launches": launches,
-        "vocab_head_tf32x3_launches_fp32_decode": tf32x3_fp32_decode,
+        "launches_fp32_decode": fp32_launches,
         "decode_ms_b128_fp32_fused_head_on": fp32_ms["on"],
         "decode_ms_b128_fp32_fused_head_off": fp32_ms["off"],
         "decode_ms_b128": decode_ms, "captions_per_s": BATCH / (decode_ms / 1e3),
@@ -2432,8 +2510,10 @@ def phase_cli_serve() -> dict:
     if lines != [{"video_id": jsonable_id(v), "caption": c} for v, c in zip(vids, want)]:
         raise AssertionError(f"cli serve wrote {lines[:2]}, caption() gives {want[:2]}")
     chunks = -(-len(vids) // cfg.test_batch_size)  # Captioner batches of test_batch_size
-    if launches["lstm_scan"] != 2 * chunks or not chunks <= launches["vocab_head"] <= chunks * cfg.max_words:
-        raise AssertionError(f"cli serve launches: {launches}")
+    if launches["lstm_scan"] != 2 * chunks or not chunks <= launches["vocab_head"] <= chunks * cfg.max_words \
+            or launches[K1_FP32_KEY] != launches["vocab_head"] or launches[SPLIT_KEY] != chunks:
+        raise AssertionError(f"cli serve launches (fp32: K1's {K1_FP32} route, a split a decode): "
+                             f"{launches}")
     # a reference-schema .pt, written here, through evaluate --torch_checkpoint
     pt = os.path.join(work.name, "reference_epoch.pt")
     torch.save({"epoch": 0, "model_state_dict": reference_state_dict(cfg, len(make_vocab()), SEED),
@@ -2771,7 +2851,10 @@ def ma_decode(compute_dtype: str, mesh) -> dict:
         whole = decode(fr, rg)
         nudged = decode(fr + 1e-6, rg)
         out["whole_decode_ms"] = time_ms(lambda: decode(fr, rg), repeats=3, warmup=1)
-        wv, bv = (t.clone() for t in model.decoder_vocab_head())
+        wv, bv = model.decoder_vocab_head()
+        # the whole head, kept from the sharding below (a prepared head's
+        # parts or rows are its own)
+        bv = bv.clone()
     out["perturbation_floor"] = agreement(whole, nudged)
     shard_params(model, mesh)
     g = torch.Generator().manual_seed(SEED + 62)
@@ -2969,7 +3052,7 @@ def phase_model_axis() -> dict:
         for rk in ranks:
             got = rk["b"][dtype]
             if not (got["k1_launches"] == got["k1_on_route"] == got["beam_steps"] >= 1
-                    and got["route"] == (K1_BF16 if dtype == "bfloat16" else "tf32x3")
+                    and got["route"] == (K1_BF16 if dtype == "bfloat16" else K1_FP32)
                     and got["step_max_abs_err"] <= KERNEL_TOL and got["step_ids_differ"] == 0
                     and got["token_agreement"] >= TOKEN_AGREEMENT_MIN):
                 problems.append(f"(b) {dtype} rank {rk['rank']}: {got}")
@@ -2983,7 +3066,7 @@ def phase_model_axis() -> dict:
                         f"healthz {c0['healthz']}")
     launches = ranks[0]["launches"]
     if ranks[1]["launches"] != launches or not launches["lstm_scan"] or \
-            not launches[K1_BF16_KEY] or not launches["vocab_head[tf32x3]"]:
+            not launches[K1_BF16_KEY] or not launches[K1_FP32_KEY] or not launches[SPLIT_KEY]:
         problems.append(f"(a)-(c) launches {launches} / {ranks[1]['launches']}")
     if problems:
         raise AssertionError("model_axis: " + "; ".join(problems))
@@ -3038,19 +3121,22 @@ def main() -> None:
         DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
                    use_pallas_lstm=True, use_fused_vocab_head="on")
     )
-    # (key of the serving phase's launch counts, kernels line entry); the
-    # fp32-w TF32x3 tiles are off the bf16 serving path and count 0 there
+    # (key of the serving phase's launch counts, kernels line entry); K1's
+    # fp32 route and the split are off the bf16 serving path and count 0
+    # there (the fp32 decode, cli serve and the model axis run them)
     t = time.perf_counter()
     checks = [
         ("lstm_scan", check_lstm_scan(cfg)),
         (K1_BF16_KEY, check_vocab_head(cfg, torch.bfloat16)),
-        ("vocab_head[tf32x3]", check_vocab_head(cfg, torch.float32)),
+        (K1_FP32_KEY, check_vocab_head(cfg, torch.float32)),
+        (SPLIT_KEY, check_tf32_split(cfg)),
     ]
     vocab, params = serving_model(cfg)
     checks.append(("qmatmul", check_qmatmul(cfg, params)))
     seconds["kernel_checks"] = time.perf_counter() - t
     torch.cuda.empty_cache()
-    launches = {"launches": timed("serving", phase_serving, cfg, vocab, params)["launches"]}
+    serving = timed("serving", phase_serving, cfg, vocab, params)
+    launches = {"launches": serving["launches"], "launches_fp32_decode": serving["launches_fp32_decode"]}
     torch.cuda.empty_cache()
     launches["launches_two_pass"] = timed("two_pass", phase_two_pass, cfg, params)["launches"]
     torch.cuda.empty_cache()

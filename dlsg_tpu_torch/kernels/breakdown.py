@@ -12,23 +12,25 @@ serving path's shapes (CUDA events, mean of back-to-back calls, each variant
 twice) and by device time without host time (torch.profiler,
 `device_us_per_call`, with each kernel's share). A variant with a part
 removed computes wrong values: its time says what the removed part costs,
-nothing else. The vocab head runs once per w dtype: bf16 w (the persistent
-wgmma kernel) at the beam step's G = 640 and the first step's G = 128, and
-at each tile width the plan can choose; fp32 w (TF32x3 tiles), whose
-variants' top-k logits are also held against a float64 product, so the
-variants that change the arithmetic (one TF32 pass, one accumulator) show
-what the TF32x3 design's accuracy rests on. The LSTM scan runs one
+nothing else. The vocab head runs once per w dtype on its persistent
+kernel: bf16 w at the beam step's G = 640 and the first step's G = 128, and
+at each tile width the plan can choose; fp32 w (its TF32 route, on w split
+once as the decoder does) at G = 640 and 128 with V = 10 000 and at G = 640
+with a rank's 5 000 columns, each call's top-k logits also held against a
+float64 product, so the variants that change the arithmetic (one TF32 pass,
+one accumulator) show what the route's accuracy rests on; beside them the
+split of the decoder's head, and of h (the launch that the option not taken,
+h split apart into shared memory, would add each call; `tf32_h_presplit` is
+a proxy of that option's kernel), and each shape's bound. The LSTM scan runs one
 direction each way, and also with the plan's row groups, units and
 two-chunk stages forced to the alternatives. `--against` builds another
 checkout's sources (the parent commit's, unpacked with `git archive`) as
 one more variant, timed in the same turns, for a before/after on one card;
 an `--against` source whose wrapper module differs from this checkout's (a
-changed C interface) runs through that checkout's own wrapper. It also
-times the fp32 beam-5 decode of 128 clips at MSR-VTT widths under the
-vocab head's 'whole' build, and under the 'against' build where the two
-vocab head wrappers are the same, and with the fused head off; and the bf16
-beam-5 decode (the serving path) on each checkout's kernels and wrappers in
-turns, one decode each a turn. Prints one JSON line of microseconds
+changed C interface) runs through that checkout's own wrapper (fed a bare w
+where it takes no prepared head). It also times the bf16
+beam-5 decode (the serving path) and the fp32 one, each on each checkout's
+kernels and wrappers in turns, one decode each a turn. Prints one JSON line of microseconds
 per call (and each call's host time: the wrapper's enqueue, no
 synchronisation), those errors and ptxas's registers per kernel of each
 variant. qmatmul (the int8 decode's product) runs at the
@@ -61,13 +63,18 @@ _LOADS = ("            mbar_expect_tx(full, STAGE_BYTES);\n"
           "            for (int bx = 0; bx < BOXES; ++bx)\n"
           "              tma_load_3d(ring + stage * STAGE_BYTES + bx * CHUNK_BYTES, &h_map,\n"
           "                          (st * BOXES + bx) * KC, rt * ROWS, (s - 1) & 1, full);\n",)
-_KERNELS = ("vh_wgmma_kernel", "tc_tile_kernel", "tf32x3_tile_kernel", "merge_kernel", "lstm_scan_kernel",
-            "qmm_wgmma_kernel", "qmm_tile_kernel", "quantize_rows_kernel")
+_KERNELS = ("vh_wgmma_kernel", "tf32x3_tile_kernel", "tf32_split_kernel", "merge_kernel",
+            "lstm_scan_kernel", "qmm_wgmma_kernel", "quantize_rows_kernel")
 # the int8 decode's products at MSR-VTT widths: (weight, K, N) of Wq, Wl, Wv
 QMATMUL_SHAPES = (("Wq", 2860, 4096), ("Wl", 4608, 6144), ("Wv", 1536, 10000))
-PEAK_INT8, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM, dense, 700 W
-_SMALL_TERMS = ("mma_tf32(part[i][j], ah, bl[j][0], bl[j][1]);",
-                "mma_tf32(part[i][j], al, bh[j][0], bh[j][1]);")
+PEAK_INT8, PEAK_BF16, PEAK_TF32, PEAK_BYTES = 1979e12, 989e12, 495e12, 3.35e12  # H100 SXM, dense, 700 W
+# the fp32 route's three products of a k8 step, its register split and its h loads
+_TF32_TERMS = ("            wgmma_tf32<BN>(part, ah[kk], sw128_desc(wl + 32 * kk), kk);  // kk 0: fresh sums\n"
+               "            wgmma_tf32<BN>(part, al[kk], sw128_desc(wh + 32 * kk), 1);\n"
+               "            wgmma_tf32<BN>(part, ah[kk], sw128_desc(wh + 32 * kk), 1);\n")
+_SPLIT = ("  hi = tf32_rna(x);\n"
+          "  lo = (hi & 0x7f800000u) == 0x7f800000u ? 0u : tf32_rna(x - __uint_as_float(hi));")
+_H_LOAD = "            tma_load(dst + i * W_BOX_BYTES, &h_map, kt * BK, m0 + i * W_BOX, full);\n"
 
 
 _QROW = "  const int chunks = Kp / 16;  // 16-value steps of a row\n"
@@ -91,33 +98,35 @@ VARIANTS = {
     },
     vocab_head.LIBRARY: {
         "whole": {},
-        # bf16 w: vh_wgmma_kernel (route wgmma); a test that never passes keeps
-        # one read of the accumulators (ptxas drops a wgmma nobody reads)
+        # both routes of vh_wgmma_kernel; a test that never passes keeps one
+        # read of the accumulators (ptxas drops a wgmma nobody reads)
         "no_epilogue": {
             "      wgmma_epilogue<BN, KL>(acc, bias, row0, col0, tile / MT, G, V, k, n_tiles, "
             "part_v, part_i,\n                             part_m, part_s);\n":
                 "      if (acc[0] == 1e30f) part_m[0] = 0.f;\n"},
-        "no_mainloop": {"const int KT = (H + W_BK - 1) / W_BK;": "const int KT = 0;"},
+        "no_mainloop": {"const int KT = (H + BK - 1) / BK;": "const int KT = 0;"},
         # 64-row tiles, one consumer warpgroup a block, same grid (still right)
         "one_consumer": {"constexpr int W_CONSUMERS = 2;": "constexpr int W_CONSUMERS = 1;"},
-        # fp32 w: tf32x3_tile_kernel
-        "tf32x3_no_epilogue": _cut(
-            "tile_epilogue<F_BM>(C, row0, col0, tile, G, V, k, n_tiles, part_v, part_i, "
-            "part_m, part_s);"
-        ),
-        "tf32x3_no_mainloop": {"const int KT = (H + F_BK - 1) / F_BK;": "const int KT = 0;"},
-        "tf32x3_no_split": {  # raw fp32 bits into the mma (wrong values): the split's cost
-            "hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));":
-                "hi = __float_as_uint(x);\n  lo = hi;"},
-        "tf32x3_one_pass": _cut(*_SMALL_TERMS),  # hi*hi alone: one TF32 pass
-        "tf32x3_one_accumulator": {  # every mma straight into acc, no k-tile sums
-            **{stmt: stmt.replace("part[", "acc[")
-               for stmt in (*_SMALL_TERMS, "mma_tf32(part[i][j], ah, bh[j][0], bh[j][1]);")},
-            "for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];": ";"},
-        "tf32x3_three_stages": {"constexpr int F_STAGES = 4;": "constexpr int F_STAGES = 3;"},
-        "tf32x3_integer_rounding": {  # round half away by integer add and mask, no cvt
-            'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
-            "  return r & 0xffffe000u;": "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"},
+        # fp32 w (route wgmma_tf32): hi*hi alone, one TF32 pass
+        "tf32_one_pass": {_TF32_TERMS: "            wgmma_tf32<BN>(part, ah[kk], sw128_desc(wh + 32 * kk), kk);\n"},
+        # every product straight into the tile's accumulators, no k-tile sums
+        "tf32_one_accumulator": {
+            _TF32_TERMS: _TF32_TERMS.replace("(part,", "(acc,").replace(", kk);", ", 1);"),
+            "for (int i = 0; i < BN / 2; ++i) pin(part[i]);": "for (int i = 0; i < BN / 2; ++i) pin(acc[i]);",
+            "#pragma unroll\n          for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];": ""},
+        # raw fp32 bits into the products (wrong values): the split's cost
+        "tf32_no_split": {_SPLIT: "  hi = __float_as_uint(x);\n  lo = hi;"},
+        # a proxy of the option not taken (h split by a launch of its own,
+        # whose time is the split call at h's shape): its bytes, stages of
+        # h's hi and lo (loaded as h twice) besides w's, 3 of them, and no
+        # split in registers, but still this route's A fragments loaded
+        # from shared memory into registers for register-A wgmma, where the
+        # option itself would give wgmma both operands by descriptor
+        "tf32_h_presplit": {
+            "constexpr int W_A_BYTES = W_BM * W_ROW;": "constexpr int W_A_BYTES = 2 * W_BM * W_ROW;",
+            "(a_boxes + W_PARTS * b_boxes)": "(2 * a_boxes + W_PARTS * b_boxes)",
+            _H_LOAD: "{\n" + _H_LOAD + _H_LOAD.replace("dst + i", "dst + W_BM * W_ROW + i") + "}\n",
+            _SPLIT: "  hi = __float_as_uint(x);\n  lo = hi;"},
     },
     qmatmul.LIBRARY: {
         "whole": {},
@@ -250,14 +259,13 @@ def device_us_per_call(fn, n: int, by_kernel: Optional[dict] = None) -> float:
     return sum(e.self_device_time_total for e in kernels) / n
 
 
-def _f64_error(h, w, b, k: int):
-    """Max-abs error of a call's top-k logits (no normalisation) against the
-    sorted top-k of a float64 product."""
+def _f64_error(h, w, b, k: int, call):
+    """Max-abs error of `call()`'s top-k logits (no normalisation) against
+    the sorted top-k of a float64 product of h and w."""
     want = torch.topk(h.double() @ w.double() + b.double(), k).values
 
     def error() -> float:
-        vals, _ = vocab_head.vocab_head_topk(h, w, b, k, normalize=False)
-        return float((vals.double() - want).abs().max())
+        return float((call()[0].double() - want).abs().max())
 
     return error
 
@@ -280,40 +288,22 @@ def qmatmul_bound_us(G: int, K: int, N: int) -> float:
     return 1e6 * max(2.0 * G * K * N / PEAK_INT8, nbytes / PEAK_BYTES)
 
 
-def _decode_calls(n_clips: int = 128, vocab: int = 10000):
-    """The fp32 beam-5 decode of `n_clips` MSR-VTT clips (seeded random
-    weights, both kernel switches on), with the fused vocab head on and off."""
-    from dlsg_tpu_torch.config import DLSGConfig, apply_dataset_overrides
-    from dlsg_tpu_torch.evaluation.decode import make_decode_fn
-    from dlsg_tpu_torch.models.generator import CapGnnModel
-
-    cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="float32",
-                                             use_pallas_lstm=True, use_fused_vocab_head="on"))
-    model = CapGnnModel(cfg, vocab, generator=torch.Generator().manual_seed(0), device="cuda")
-    rng = np.random.default_rng(0)
-    fr = torch.from_numpy(rng.standard_normal((n_clips, cfg.max_frames, cfg.feature_size),
-                                              dtype=np.float32)).cuda()
-    rg = torch.from_numpy(rng.standard_normal(
-        (n_clips, cfg.max_frames, cfg.num_obj, cfg.region_feature_size), dtype=np.float32)).cuda()
-    on = make_decode_fn(model, cfg, beam_size=5, device="cuda")
-    off = make_decode_fn(model, replace(cfg, use_fused_vocab_head="off"), beam_size=5, device="cuda")
-    return {"fused_on": lambda: on(fr, rg), "fused_off": lambda: off(fr, rg)}
-
-
-def _decode_turns(builds: dict, against_mods: dict, n: int = 10) -> dict:
-    """Wall ms of the bf16 beam-5 decode of 128 MSR-VTT clips (the serving
-    path: seeded random weights, both kernels on) in this process, in turns:
-    each turn one decode on this checkout's kernels and wrappers and one on
-    the --against checkout's (both libraries bound to its builds, its
-    wrappers put in the decode's place where they differ), the order
-    alternating; n turns after one that warms both up."""
+def _decode_turns(builds: dict, against_mods: dict, compute_dtype: str, n: int = 10) -> dict:
+    """Wall ms of the beam-5 decode of 128 MSR-VTT clips at `compute_dtype`
+    (seeded random weights, both kernels on; bf16 is the serving path) in
+    this process, in turns: each turn one decode on this checkout's kernels
+    and wrappers and one on the --against checkout's (both libraries bound
+    to its builds, its wrappers put in the decode's place where they
+    differ; a vocab head wrapper that takes no prepared head is handed the
+    head as its decoder laid it out, `_bare_head`), the order alternating;
+    n turns after one that warms both up."""
     from dlsg_tpu_torch.config import DLSGConfig, apply_dataset_overrides
     from dlsg_tpu_torch.evaluation import decode as decode_mod
     from dlsg_tpu_torch.evaluation.decode import make_decode_fn
     from dlsg_tpu_torch.models.generator import CapGnnModel
     from dlsg_tpu_torch.ops import lstm as lstm_ops
 
-    cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype="bfloat16",
+    cfg = apply_dataset_overrides(DLSGConfig(dataset="msr-vtt", compute_dtype=compute_dtype,
                                              use_pallas_lstm=True, use_fused_vocab_head="on"))
     model = CapGnnModel(cfg, 10000, generator=torch.Generator().manual_seed(0), device="cuda")
     rng = np.random.default_rng(0)
@@ -335,7 +325,10 @@ def _decode_turns(builds: dict, against_mods: dict, n: int = 10) -> dict:
                 _bind(lib, builds[(lib, "against")])
             else:
                 _bind(mod.LIBRARY, builds[(lib, "against")])
-                setattr(where, name, getattr(mod, name))
+                wrapper = getattr(mod, name)
+                if lib is vocab_head.LIBRARY and not hasattr(mod, "PreparedHead"):
+                    wrapper = _bare_head(wrapper)
+                setattr(where, name, wrapper)
 
     out = {"whole": [], "against": []}
     try:
@@ -351,6 +344,23 @@ def _decode_turns(builds: dict, against_mods: dict, n: int = 10) -> dict:
     finally:
         bind("whole")
     return out
+
+
+def _bare_head(wrapper):
+    """`wrapper` (a vocab head wrapper that takes no PreparedHead) fed the
+    head as a decoder without `prepare_head` laid it out once per decode:
+    bf16 in rows TMA reads (the prepared head's rows), fp32 contiguous (made
+    once for each prepared head, whose split the decode still makes)."""
+    last = {}
+
+    def call(h, w, b, k, **kw):
+        if isinstance(w, vocab_head.PreparedHead):
+            if last.get("head") is not w:
+                last.update(head=w, w=w.w.contiguous() if w.parts is not None else w.w)
+            w = last["w"]
+        return wrapper(h, w, b, k, **kw)
+
+    return call
 
 
 def _host_us(fn, n: int) -> float:
@@ -369,9 +379,10 @@ def _host_us(fn, n: int) -> float:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, default=None,
-                    help="another checkout (say the parent commit's): its csrc/ sources, which "
-                         "must keep this one's C interface, are built as variant 'against', "
-                         "and the fp32 beam-5 decode is timed under both vocab head builds")
+                    help="another checkout (say the parent commit's): its csrc/ sources are "
+                         "built as variant 'against' (through its own wrappers where they "
+                         "differ), and the bf16 and fp32 beam-5 decodes are timed in turns "
+                         "on both")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("breakdown: needs a CUDA device")
@@ -382,18 +393,33 @@ def main(argv=None) -> None:
     h = torch.tanh(torch.randn(640, 1536, generator=g)).to(torch.bfloat16).cuda()
     w = (torch.randn(1536, 10000, generator=g) * 0.02).to(torch.bfloat16).cuda()
     b = torch.zeros(10000, device="cuda")
-    # fp32 w as in chip_smoke.py's check: h = tanh(N(0, 1)), w xavier-normal
+    # fp32 w as in chip_smoke.py's check: h = tanh(N(0, 1)), w xavier-normal,
+    # split once as the decoder does (this checkout's wrapper); an --against
+    # wrapper without the split takes the bare w, contiguous
     h32 = torch.tanh(torch.randn(640, 1536, generator=g)).cuda()
     w32 = (torch.randn(1536, 10000, generator=g) * (2.0 / 11536) ** 0.5).cuda()
     b32 = (torch.randn(10000, generator=g) * 0.01).cuda()
+    w5, b5 = w32[:, :5000].contiguous(), b32[:5000].contiguous()  # a rank's columns
+    heads = {id(w32): vocab_head.split_head(w32), id(w5): vocab_head.split_head(w5)}
     xw = (torch.randn(128, 26, 4096, generator=g) * 0.5).cuda()
     w_hh = (torch.randn(1024, 4096, generator=g) / 32).cuda()
     shared = ("whole", "against")
-    bf16 = lambda n: n in shared or not n.startswith("tf32x3_")  # noqa: E731
-    fp32 = lambda n: n in shared or n.startswith("tf32x3_")  # noqa: E731
-    h128 = h[:128].contiguous()  # the first beam step's rows (128 clips, one beam)
+    bf16 = lambda n: n in shared or not n.startswith("tf32_")  # noqa: E731
+    fp32 = lambda n: n in shared or n in ("no_epilogue", "no_mainloop") or n.startswith("tf32_")  # noqa: E731
+    h128, h32_128 = h[:128].contiguous(), h32[:128].contiguous()  # the first beam step's rows
     vh = lambda *a, **kw: WRAPPERS[vocab_head.LIBRARY].vocab_head_topk(*a, **kw)  # noqa: E731
     scan = lambda *a, **kw: WRAPPERS[lstm_scan.LIBRARY].lstm_scan(*a, **kw)  # noqa: E731
+
+    def vh32(hh, ww, bb, **kw):
+        """fp32 K1 on the split head where the bound wrapper takes one."""
+        own_wrapper = WRAPPERS[vocab_head.LIBRARY] is vocab_head
+        return vh(hh, heads[id(ww)] if own_wrapper else ww, bb, 5, **kw)
+
+    def fp32_call(label, hh, ww, bb, times):
+        return (f"vocab_head_topk h [{hh.shape[0]},1536] w [1536,{ww.shape[1]}] fp32 k=5" + label,
+                lambda: vh32(hh, ww, bb), 20, times,
+                _f64_error(hh, ww, bb, 5, lambda: vh32(hh, ww, bb, normalize=False)))
+
     # library -> [(label, call, calls per timing, variants it times, error or None)]
     calls = {
         vocab_head.LIBRARY: [
@@ -401,8 +427,16 @@ def main(argv=None) -> None:
              lambda: vh(h, w, b, 5), 20, bf16, None),
             ("vocab_head_topk h [128,1536] w [1536,10000] bf16 k=5",
              lambda: vh(h128, w, b, 5), 20, bf16, None),
-            ("vocab_head_topk h [640,1536] w [1536,10000] fp32 k=5",
-             lambda: vh(h32, w32, b32, 5), 20, fp32, _f64_error(h32, w32, b32, 5)),
+            fp32_call("", h32, w32, b32, fp32),
+            fp32_call("", h32_128, w32, b32, lambda n: n in shared),
+            fp32_call(" (a rank's columns)", h32, w5, b5, lambda n: n in shared),
+            # the decoder's once-a-decode split of its [V, H] weight, and the
+            # split launch over h that the option not taken would add a call
+            ("tf32_split w [1536,10000] (a [10000,1536] weight's transpose)",
+             lambda w_t=w32.t().contiguous().t(): vocab_head.split_head(w_t), 20,
+             lambda n: n == "whole", None),
+            ("tf32_split h [640,1536] as [1536,640]", lambda: vocab_head.split_head(h32.t()), 20,
+             lambda n: n == "whole", None),
         ],
         lstm_scan.LIBRARY: [("lstm_scan B=128 T=26 H=1024, one direction",
                              lambda: scan(xw, w_hh), 10, lambda n: True, None),
@@ -441,17 +475,6 @@ def main(argv=None) -> None:
             "device_us_by_block_n": _by_block_n(call),
         }
     against_mods = _against_wrappers(args.against)
-    if args.against is not None:
-        # the decode calls this checkout's wrapper: it times the other build
-        # only where the two wrappers are the same
-        decode = _decode_calls()
-        label = "decode fp32 beam-5 128 msr-vtt clips, fused vocab head"
-        same = vocab_head.LIBRARY not in against_mods
-        calls[vocab_head.LIBRARY].append(
-            (label + " on", decode["fused_on"], 3,
-             lambda n: n == "whole" or (n == "against" and same), None))
-        calls[vocab_head.LIBRARY].append(
-            (label + " off", decode["fused_off"], 3, lambda n: n == "whole", None))
     saved = {lib: lib.load() for lib in VARIANTS}
     own = dict(WRAPPERS)
     result, device, kernel_us, errors, host = {}, {}, {}, {}, {}
@@ -477,13 +500,23 @@ def main(argv=None) -> None:
             finally:  # the other library runs its own build (the decode runs both)
                 lib._lib = saved[lib]
                 WRAPPERS[lib] = own[lib]
-    vh_widths = {f"G={G}": _vocab_head_by_block_n(G, h, w, b) for G in (128, 640)}
-    decode_bf16 = None if args.against is None else _decode_turns(builds, against_mods)
+    vh_widths = {f"{dt} G={G} V={ww.shape[1]}": _vocab_head_by_block_n(G, hh, ww, bb)
+                 for dt, hh, ww, bb in (("bf16", h, w, b), ("fp32", h32, heads[id(w32)], b32),
+                                        ("fp32", h32, heads[id(w5)], b5))
+                 for G in (128, 640)}
+    bounds = {f"{dt} G={G} V={V}": vocab_head_bound_us(G, 1536, V, dt)
+              for dt in (torch.bfloat16, torch.float32) for G in (128, 640) for V in (10000, 5000)}
+    # what the fp32 design reads beyond the function's bytes: its hi and lo in w's place
+    bounds.update({f"fp32 split w extra us V={V}": 1e6 * (split_bytes(1536, V) - 1536 * V * 4)
+                   / PEAK_BYTES for V in (10000, 5000)})
+    turns = {} if args.against is None else {
+        f"decode_{dt}_beam5_ms_turns": _decode_turns(builds, against_mods, dt)
+        for dt in ("bfloat16", "float32")}
     print(json.dumps({"device": torch.cuda.get_device_name(0), "us_per_call": result,
-                      "host_us_per_call": host, "decode_bf16_beam5_ms_turns": decode_bf16,
+                      "host_us_per_call": host, **turns,
                       "device_us_per_call": device, "device_us_by_kernel_two_runs": kernel_us,
                       "max_abs_err_vs_float64": errors, "qmatmul_bound_and_library": qmm_reference,
-                      "vocab_head_device_us_by_block_n": vh_widths,
+                      "vocab_head_device_us_by_block_n": vh_widths, "vocab_head_bound_us": bounds,
                       "registers": registers}), flush=True)
 
 
@@ -514,20 +547,38 @@ def _forced_scan(xw, w_hh, units: int, groups: int, boxes: int):
 
 
 def _vocab_head_by_block_n(G: int, h, w, b) -> dict:
-    """Device microseconds of the bf16 vocab head at G rows for each tile
-    width of the persistent kernel (`_wgmma_plan` in place of the plan's
-    choice)."""
+    """Device microseconds of the vocab head at G rows for each tile width
+    of the persistent kernel (`_wgmma_plan` in place of the plan's choice),
+    bf16 w or a split fp32 head."""
     chosen = vocab_head.vocab_head_plan
     hg = h[:G].contiguous()
     out = {}
     try:
         for bn in vocab_head.WGMMA_BLOCK_NS:
             vocab_head.vocab_head_plan = (  # noqa: E731
-                lambda G, H, V, dt, n_sm=vocab_head.N_SM, bn=bn: vocab_head._wgmma_plan(G, V, bn, n_sm))
+                lambda G, H, V, dt, n_sm=vocab_head.N_SM, bn=bn: vocab_head._wgmma_plan(G, V, bn, n_sm, dt))
             out[bn] = device_us_per_call(lambda: vocab_head.vocab_head_topk(hg, w, b, 5), 20)
     finally:
         vocab_head.vocab_head_plan = chosen
     return out
+
+
+def vocab_head_bound_us(G: int, H: int, V: int, dtype) -> float:
+    """Least microseconds for K1 at (G, H, V): 2GHV operations at the bf16
+    rate, or three times them at the TF32 rate for fp32 w, or the bytes of
+    the function (h, w in its dtype, b, the top-5 out, each once) at the
+    memory rate, whichever is larger. A split fp32 w's hi and lo, which the
+    kernel reads in w's place, are a cost of the design, not of the
+    function: `split_bytes`."""
+    fp32 = dtype == torch.float32
+    ops = (3 if fp32 else 1) * 2.0 * G * H * V / (PEAK_TF32 if fp32 else PEAK_BF16)
+    w_bytes = H * V * (4 if fp32 else 2)
+    return 1e6 * max(ops, (G * H * 4 + w_bytes + V * 4 + G * 5 * 12) / PEAK_BYTES)
+
+
+def split_bytes(H: int, V: int) -> int:
+    """Bytes of an fp32 w [H, V] split into TF32 hi and lo (`split_head`)."""
+    return 2 * V * -(-H // vocab_head.SPLIT_ALIGN) * vocab_head.SPLIT_ALIGN * 4
 
 
 if __name__ == "__main__":

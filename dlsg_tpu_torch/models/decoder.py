@@ -37,13 +37,13 @@ all-gather in the JAX package; the fused head's sharded form is in
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from dlsg_tpu_torch.config import DLSGConfig
-from dlsg_tpu_torch.kernels.vocab_head import aligned_rows
+from dlsg_tpu_torch.kernels.vocab_head import PreparedHead, prepare_head
 from dlsg_tpu_torch.models.layers import AttentionShare
 from dlsg_tpu_torch.ops import quant as quant_ops
 from dlsg_tpu_torch.ops.linear import LN_EPS, Dense, Dropout, Embed, LayerNorm, matmul_f32
@@ -309,16 +309,15 @@ class Decoder(nn.Module):
         )
         return out, {"qh": qh, "qc": qc, "lh": lh, "lc": lc}, alpha
 
-    def vocab_head_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(kernel [Hd, V] in compute dtype, bias [V] fp32) for the fused head,
-        fetched once per decode; this rank's columns when the head is split
-        over the model axis (`vocab_head_shard`). A bf16 kernel is laid out
-        in rows the vocab head kernel's TMA reads for any V (`aligned_rows`:
-        a [Hd, V] view of rows ceil8(V) long)."""
+    def vocab_head_weights(self) -> Tuple[Union[torch.Tensor, PreparedHead], torch.Tensor]:
+        """(kernel [Hd, V] in compute dtype as the vocab head kernel reads it,
+        bias [V] fp32) for the fused head, fetched once per decode; this
+        rank's columns when the head is split over the model axis
+        (`vocab_head_shard`). `prepare_head` lays the kernel out from this
+        moment's weights: on the card a bf16 kernel in rows TMA reads, an
+        fp32 one split into TF32 hi and lo; on the CPU the plain kernel."""
         wr = self.step.word_restore
-        if self.cfg.cdtype == torch.bfloat16:
-            return aligned_rows(wr.weight.t(), torch.bfloat16), wr.bias.float()
-        return wr.kernel(self.cfg.cdtype), wr.bias.float()
+        return prepare_head(wr.weight.t(), self.cfg.cdtype), wr.bias.float()
 
     def vocab_head_shard(self) -> Optional[Tuple[int, int]]:
         """(first column, whole vocabulary) of this rank's split of the

@@ -15,6 +15,8 @@ Imports dlsg_tpu_torch only (no jax, no dlsg_tpu). Jobs:
   on, one GAN step and one CE step (dropout off, epsilon 1, the penalty's
   mixing weights given), then the same forward and GAN step with dropout on,
   and those steps again with `decoder_remat="full"`;
+- int8 (one process without a group): the same int8 decode with the whole
+  head quantized at once, the tp job's reference;
 - steps: the GAN and CE steps on this data index's rows of the global
   batch, on a (data 2 x model 2) mesh of 4 ranks, a (data 2) mesh of 2, or
   one process without a group;
@@ -127,6 +129,15 @@ def int8_decode(weights, frames, regions, mesh=None) -> dict:
                                 use_fused_vocab_head=head)
         out[f"int8_ids_{head}"] = make_decode_fn(g, hcfg, device="cpu")(frames, regions)
     return out
+
+
+def int8_job(in_dir: str) -> dict:
+    """One process without a group: the int8 decode of IN_DIR's weights and
+    clips with the whole head quantized at once, the split head's
+    reference."""
+    weights = torch.load(os.path.join(in_dir, "weights.pt"), weights_only=True)
+    data = dict(np.load(os.path.join(in_dir, "batch.npz")))
+    return int8_decode(weights, torch.from_numpy(data["frames"]), torch.from_numpy(data["regions"]))
 
 
 def tp_job(in_dir: str) -> dict:
@@ -323,8 +334,8 @@ def serve_job(in_dir: str) -> dict:
     return out
 
 
-JOBS = {"tp": tp_job, "steps": steps_job, "trainer": trainer_job, "mesh": mesh_job,
-        "serve": serve_job}
+JOBS = {"tp": tp_job, "int8": int8_job, "steps": steps_job, "trainer": trainer_job,
+        "mesh": mesh_job, "serve": serve_job}
 
 
 def main() -> None:

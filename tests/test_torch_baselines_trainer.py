@@ -24,6 +24,7 @@
 
 import json
 import os
+import shutil
 
 import flax.linen
 import jax
@@ -187,7 +188,8 @@ def run_ranks(tmp_path_factory):
         run.train()
     one = {"g_mu": run.gen_state.first_moments(), "g_params": run.gen_model.state_dict(),
            "step": run.gen_state.step}
-    return collect_ranks(procs, "run", work, timeout=300), one
+    yield collect_ranks(procs, "run", work, timeout=300), one
+    shutil.rmtree(work, ignore_errors=True)  # the one process's run (collect_ranks)
 
 
 def test_run_over_two_ranks_matches_one_process(run_ranks):

@@ -16,6 +16,7 @@ from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.train.gan_lambda import init_lambda_state, lambda_update
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer
 from dlsg_tpu_torch.train.steps import make_gan_train_step
+from test_torch_parallel import tmp_path  # noqa: F401  (removed when a test ends)
 from test_torch_train_steps import one_torch_thread  # noqa: F401  (autouse)
 
 V = 30

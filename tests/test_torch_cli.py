@@ -27,6 +27,7 @@ from dlsg_tpu_torch.data.loader import eval_batches
 from dlsg_tpu_torch.data.synthetic import SyntheticDataset, make_vocab
 from dlsg_tpu_torch.serve import Captioner
 from test_cli_realdata import TINY_FLAGS, _fabricate_data_dir
+from test_torch_parallel import tmp_path  # noqa: F401  (removed when a test ends)
 from test_torch_train_steps import one_torch_thread  # noqa: F401  (autouse)
 
 PORT_FLAGS = TINY_FLAGS[4:]  # without the mesh flags: one process, one device

@@ -112,8 +112,8 @@ def test_lstm_scan_plan_groups_and_co_residency(B, H):
      (130, 200, 2177, torch.bfloat16, "wgmma", (2, 35)),  # rows TMA reads only once copied
      (5, 64, 130, torch.bfloat16, "wgmma", (1, 3)),
      (640, 1536, 9999, torch.bfloat16, "wgmma", (5, 79)),  # a vocabulary of any size
-     (640, 1536, 10000, torch.float32, "tf32x3", (5, 79)),
-     (70, 96, 1000, torch.float32, "tf32x3", (1, 8))],
+     (640, 1536, 10000, torch.float32, "wgmma_tf32", (5, 79)),
+     (70, 96, 1000, torch.float32, "wgmma_tf32", (1, 16))],
 )
 def test_vocab_head_plan(G, H, V, dtype, route, tiles):
     plan = vocab_head_plan(G, H, V, dtype)
@@ -136,14 +136,39 @@ def test_vocab_head_plan_tensor_core_tiles():
 
 
 def test_vocab_head_plan_tf32x3_tiles():
-    """fp32: 4 stages of [128 x 36] h + [32 x 136] w fp32 (143,360 B, rows
-    padded against bank conflicts of the scalar fragment loads), more than
-    the [128 x 130] fp32 logits tile it is reused for; one block fits an SM."""
+    """fp32 (three TF32 products) runs the persistent kernel too: 4 stages
+    of [128 x 32] h + hi and lo [32 x 128] of the split w, fp32 (48 KB a
+    stage, the 192 KB ring), the bias tiles, the barriers and 1 KB to align
+    the ring; one block fits an SM, 132 of them walk the 5 x 79 tiles."""
     plan = vocab_head_plan(640, 1536, 10000, torch.float32)
-    assert (plan.block_m, plan.block_k, plan.stages) == (128, 32, 4)
-    assert plan.smem_bytes == 4 * (128 * 36 + 32 * 136) * 4 == 143360
-    assert plan.smem_bytes > 128 * 130 * 4
+    assert (plan.route, plan.block_m, plan.block_n, plan.block_k, plan.stages) == (
+        "wgmma_tf32", 128, 128, 32, 4)
+    assert plan.smem_bytes == 1024 + 4 * (128 + 2 * 128) * 32 * 4 + 2 * 128 * 4 + 2 * 8 * 8 == 198784
     assert plan.smem_bytes <= SMEM_LIMIT < 2 * plan.smem_bytes
+    assert plan.tiles == (5, 79) and plan.blocks == N_SM
+
+
+@pytest.mark.parametrize(
+    "G,H,V,block_n,stages",
+    [(640, 1536, 10000, 128, 4),  # the fp32 beam step
+     (128, 1536, 10000, 128, 4),  # its first step: one row tile, 79 blocks in one wave
+     (640, 1536, 5000, 128, 4),  # a rank's columns on the model axis: 2 waves
+     (128, 1536, 5000, 64, 6),  # ... at the first step: 79 tiles of 64 in one wave
+     (130, 200, 2177, 64, 6),  # ragged G, H and V
+     (5, 61, 130, 64, 6)],  # H not a multiple of 4 (h copied into 16-byte rows)
+)
+def test_vocab_head_plan_fp32_route(G, H, V, block_n, stages):
+    """The fp32 plan (route "wgmma_tf32") at the decode's shapes: the tile
+    width by bf16's wave cost, the deepest ring of its 128-byte-deep stages
+    (h, hi, lo) that fits, at most one block per SM, every tile covered."""
+    plan = vocab_head_plan(G, H, V, torch.float32)
+    assert (plan.route, plan.block_n, plan.block_k, plan.stages) == ("wgmma_tf32", block_n, 32, stages)
+    assert plan == _wgmma_plan(G, V, block_n, N_SM, torch.float32)
+    assert plan.block_n == vocab_head_plan(G, H, V, torch.bfloat16).block_n
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan.stages * (128 + 2 * block_n) * 128 <= 196608
+    assert plan.tiles == (-(-G // 128), -(-V // block_n))
+    assert plan.blocks == min(plan.tiles[0] * plan.tiles[1], N_SM) <= N_SM
 
 
 def test_vocab_head_plan_rejects_other_dtypes():

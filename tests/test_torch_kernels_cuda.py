@@ -167,12 +167,13 @@ def test_plans_state_the_kernels_shared_memory(card):
         assert lstm.lstm_scan_smem_bytes(B, H, plan.units, plan.groups, plan.stages,
                                          plan.boxes) == plan.smem_bytes
     vocab = VOCAB_LIB.load()
-    ragged = vocab_head_plan(130, 200, 2177, torch.bfloat16)
-    assert vocab.vocab_head_wgmma_smem_bytes(ragged.block_n) == ragged.smem_bytes
-    assert vocab.vocab_head_tf32x3_smem_bytes() == vocab_head_plan(640, 1536, 10000, torch.float32).smem_bytes
-    for bn in WGMMA_BLOCK_NS:
-        plan = vocab_head_mod._wgmma_plan(640, 10000, bn, _n_sm(card))
-        assert vocab.vocab_head_wgmma_smem_bytes(bn) == plan.smem_bytes
+    for dtype in (torch.bfloat16, torch.float32):
+        tf32 = int(dtype == torch.float32)
+        ragged = vocab_head_plan(130, 200, 2177, dtype)
+        assert vocab.vocab_head_wgmma_smem_bytes(ragged.block_n, tf32) == ragged.smem_bytes
+        for bn in WGMMA_BLOCK_NS:
+            plan = vocab_head_mod._wgmma_plan(640, 10000, bn, _n_sm(card), dtype)
+            assert vocab.vocab_head_wgmma_smem_bytes(bn, tf32) == plan.smem_bytes
 
 
 @pytest.mark.parametrize(
@@ -187,7 +188,7 @@ def test_plans_state_the_kernels_shared_memory(card):
 )
 def test_vocab_head_kernel_matches_plain(card, G, H, V, k, dtype):
     """bf16 w takes the persistent wgmma kernel (rows TMA cannot read
-    copied into rows it can), fp32 w the TF32x3 tiles. Off the tile edges:
+    copied into rows it can), fp32 w its TF32 route (split in the call). Off the tile edges:
     G = 130, 5, 200 (tile 128), H = 200, 72 (k-tiles 32 and 64), V = 2177,
     130, 1000 (tiles 64 and 128); V = 2177 has w rows that are not 16-byte
     aligned (bf16 and fp32), V = 130 neither (bf16)."""
@@ -208,11 +209,12 @@ def test_vocab_head_kernel_matches_plain(card, G, H, V, k, dtype):
         assert bool((gap[ids != pi] <= 1e-4).all())
 
 
-def _vocab_head_on_route(card, h, w, b, k, route, **kw):
-    """One call, which must launch once on `route`, held to the plain
-    version: values within 1e-4, ids equal but at near-ties (1e-4)."""
+def _vocab_head_on_route(card, h, w, b, k, route, head=None, **kw):
+    """One call on `head` (w's prepared head) or else w, which must launch
+    once on `route`, held to the plain version on w: values within 1e-4,
+    ids equal but at near-ties (1e-4)."""
     before, on_route = VOCAB_LIB.launches, ROUTE_LAUNCHES[route]
-    out = vocab_head_topk(h, w, b, k, **kw)
+    out = vocab_head_topk(h, w if head is None else head, b, k, **kw)
     torch.cuda.synchronize()
     assert (VOCAB_LIB.launches, ROUTE_LAUNCHES[route]) == (before + 1, on_route + 1)
     want = vocab_head_topk_plain(h, w, b, k, **kw)
@@ -254,12 +256,17 @@ def test_vocab_head_persistent_walk(card, monkeypatch, G, V, block_n):
      (640, 1536, 9999, torch.bfloat16, "wgmma"),  # the beam step, a vocabulary of any size
      (130, 200, 2177, torch.bfloat16, "wgmma"),  # w rows not 16-byte aligned
      (5, 60, 136, torch.bfloat16, "wgmma"),  # h rows not 16-byte aligned
-     (640, 1536, 10000, torch.float32, "tf32x3")],
+     (640, 1536, 10000, torch.float32, "wgmma_tf32"),  # the fp32 beam step
+     (128, 1536, 10000, torch.float32, "wgmma_tf32"),
+     (640, 1536, 5000, torch.float32, "wgmma_tf32"),
+     (130, 200, 2177, torch.float32, "wgmma_tf32"),
+     (5, 61, 136, torch.float32, "wgmma_tf32")],  # h rows not 16-byte aligned
 )
 def test_vocab_head_route_by_shape(card, G, H, V, dtype, route):
     """The plan picks the route from w's dtype, and the launch goes there:
-    every bf16 shape on the persistent kernel (TMA reads 16-byte row
-    pitches: h and w whose rows are not are copied into such rows)."""
+    every shape on the persistent kernel (TMA reads 16-byte row pitches: h
+    and bf16 w whose rows are not are copied into such rows; an fp32 w is
+    split into K-major rows of ceil4(H))."""
     assert vocab_head_plan(G, H, V, dtype, n_sm=_n_sm(card)).route == route
     h = _rand(G, H, seed=7).to(card)
     w = (_rand(H, V, seed=8) / H**0.5).to(card, dtype)
@@ -285,7 +292,9 @@ def test_vocab_head_reads_the_decoders_pitched_w(card, G, V):
     """w as `Decoder.vocab_head_weights` lays it out (`aligned_rows`: a
     [H, V] view of rows ceil8(V) long) runs on its own rows, no copy: its
     TMA map is keyed by its pitch; the result equals the contiguous w's
-    bitwise (which is copied into such rows on each call)."""
+    bitwise (which is copied into such rows on each call), and that of its
+    prepared head (`prepare_head`, which the decoder hands the kernel:
+    such rows with their map)."""
     H = 1536
     h = torch.tanh(_rand(G, H, seed=G + V)).to(card)
     w = (_rand(H, V, seed=V) * (2.0 / (H + V)) ** 0.5).to(card, torch.bfloat16)
@@ -296,6 +305,10 @@ def test_vocab_head_reads_the_decoders_pitched_w(card, G, V):
     assert (wp.data_ptr(), H, V, wp.stride(0)) in vocab_head_mod.WEIGHT_MAPS
     for a, c in zip(got, vocab_head_topk(h, w, b, 5, return_lse=True)):
         assert torch.equal(a, c)
+    head = vocab_head_mod.prepare_head(w, torch.bfloat16)
+    assert head.parts is None and head.w.stride(0) == wp.stride(0) and torch.equal(head.w, w)
+    prepared = _vocab_head_on_route(card, h, w, b, 5, "wgmma", head=head, return_lse=True)
+    assert all(torch.equal(a, c) for a, c in zip(got, prepared))
 
 
 def test_vocab_head_wgmma_ties_go_to_lowest_id(card):
@@ -312,22 +325,81 @@ def test_vocab_head_wgmma_ties_go_to_lowest_id(card):
     assert vals[0].tolist() == [1.0] * 6 + [0.0, 0.0]
 
 
-def test_vocab_head_fp32_keeps_fp32_accuracy(card):
-    """fp32 w at the beam step's shapes and K1's operand distributions (h =
-    tanh(N(0, 1)), w xavier-normal): the kernel's top-k logits lie within
-    max(3 x the plain fp32 product's error, 2e-6) of a float64 product's. One
-    TF32 pass misses by about 4.6e-4."""
-    G, H, V, k = 640, 1536, 10000, 5
-    rng = np.random.default_rng(11)
-    h = torch.from_numpy(np.tanh(rng.normal(size=(G, H))).astype(np.float32)).to(card)
-    w = torch.from_numpy((rng.normal(size=(H, V)) * (2.0 / (H + V)) ** 0.5).astype(np.float32)).to(card)
-    b = torch.from_numpy((rng.normal(size=V) * 0.01).astype(np.float32)).to(card)
+def _k1_operands(G, H, V, seed):
+    """K1's operand distributions: h = tanh(N(0, 1)), w xavier-normal, a
+    small bias."""
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(np.tanh(rng.normal(size=(G, H))).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(H, V)) * (2.0 / (H + V)) ** 0.5).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=V) * 0.01).astype(np.float32))
+    return h, w, b
+
+
+@pytest.mark.parametrize("G,V", [(640, 10000), (128, 10000), (640, 5000), (640, 9999), (130, 2177)])
+def test_vocab_head_fp32_keeps_fp32_accuracy(card, G, V):
+    """fp32 w at the beam step's shapes (G = 640; 128 at its first step; a
+    rank's 5 000 columns; ragged V and G) and K1's operand distributions:
+    the kernel's top-k logits lie within max(3 x the plain fp32 product's
+    error, 2e-6) of a float64 product's. One TF32 pass misses by about
+    4.6e-4."""
+    H, k = 1536, 5
+    h, w, b = (t.to(card) for t in _k1_operands(G, H, V, seed=11 + G + V))
     want = torch.topk(h.double() @ w.double() + b.double(), k).values
-    vals, _ = vocab_head_topk(h, w, b, k, normalize=False)
+    vals, _ = _vocab_head_on_route(card, h, w, b, k, "wgmma_tf32", normalize=False)
     plain, _ = vocab_head_topk_plain(h, w, b, k, normalize=False)
     plain_err = float((plain.double() - want).abs().max())
     err = float((vals.double() - want).abs().max())
     assert err <= max(3 * plain_err, 2e-6), (err, plain_err)
+
+
+def test_tf32_split_kernel_equals_plain_bitwise(card):
+    """The split kernel against `tf32_split_plain`, bit for bit: w [H, V]
+    row-major (the bare fp32 w) and as the decoder's transposed view of
+    [V, H], H not a multiple of 4 (rows padded with zeros), with +-0,
+    subnormals, ties, floats that round to inf, +-inf and NaNs of several
+    payloads among normal numbers; one launch counted each."""
+    H, V = 1539, 1000
+    w = _rand(H, V, seed=21, scale=3.0)
+    special = torch.tensor([0x00000000, 0x80000000, 0x00000001, 0x807FF000, 0x3F801000,
+                            0xBF801000, 0x7F7FF000, 0xFF7FFFFF, 0x7F800000, 0xFF800000,
+                            0x7FC00000, 0x7FFFFFFF, 0xFFC00001], dtype=torch.int64)
+    special = (special - ((special >> 31) << 32)).to(torch.int32).view(torch.float32)
+    w.view(-1)[:: w.numel() // special.numel()][: special.numel()] = special
+    w.view(-1)[7::97] *= 2.0**-130  # subnormal
+    for src in (w.to(card), w.t().contiguous().to(card).t()):
+        before = ROUTE_LAUNCHES["tf32_split"]
+        head = vocab_head_mod.split_head(src)
+        torch.cuda.synchronize()
+        assert ROUTE_LAUNCHES["tf32_split"] == before + 1
+        want = vocab_head_mod.tf32_split_plain(w)
+        assert head.parts.shape == (2, V, 1540)
+        assert torch.equal(head.parts.view(torch.int32).cpu(), want.view(torch.int32))
+
+
+def test_vocab_head_split_head_equals_bare_fp32_w(card):
+    """A prepared head (split once, as the decoder does) and the bare fp32 w it
+    came from (split in the call) give bitwise the same outputs, with the
+    row logsumexp; the head's call launches no split."""
+    h, w, b = (t.to(card) for t in _k1_operands(640, 1536, 10000, seed=5))
+    head = vocab_head_mod.prepare_head(w, torch.float32)
+    splits = ROUTE_LAUNCHES["tf32_split"]
+    got = _vocab_head_on_route(card, h, w, b, 5, "wgmma_tf32", head=head, return_lse=True)
+    assert ROUTE_LAUNCHES["tf32_split"] == splits
+    bare = _vocab_head_on_route(card, h, w, b, 5, "wgmma_tf32", return_lse=True)
+    assert ROUTE_LAUNCHES["tf32_split"] == splits + 1
+    for a, c in zip(got, bare):
+        assert torch.equal(a, c)
+
+
+def test_vocab_head_fp32_is_bitwise_repeatable(card):
+    """Ten runs of the fp32 route at the beam step's shape, bitwise equal:
+    the ring's barriers, not timing, order every read of a stage."""
+    h, w, b = (t.to(card) for t in _k1_operands(640, 1536, 10000, seed=6))
+    head = vocab_head_mod.split_head(w)
+    first = vocab_head_topk(h, head, b, 5, return_lse=True)
+    for _ in range(9):
+        again = vocab_head_topk(h, head, b, 5, return_lse=True)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

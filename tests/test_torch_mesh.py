@@ -13,6 +13,7 @@ runs under torchrun): a 4-rank `mesh` job, a 2-rank `serve` job on a
 """
 
 import json
+import shutil
 
 import jax
 import numpy as np
@@ -212,7 +213,8 @@ def jobs(tmp_path_factory):
                                 "--device", "cpu", "--distributed"], work, "serve")
     cli.update(train=_finish(procs["train"]), serve=_finish(procs["serve"]),
                evaluate=_finish(procs["evaluate"]))
-    return got["mesh"], got["serve"], single, cli, work
+    yield got["mesh"], got["serve"], single, cli, work
+    shutil.rmtree(work, ignore_errors=True)  # the CLI's outputs (collect_ranks)
 
 
 def test_mesh_rank_order_and_groups_on_four_ranks(jobs):

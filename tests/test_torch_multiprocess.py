@@ -15,6 +15,7 @@ module, beside the trainer job.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -77,12 +78,14 @@ def cli_train(tmp_path_factory):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+        shutil.rmtree(work, ignore_errors=True)  # its run's outputs (collect_ranks)
 
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory, cli_train):
     work = tmp_path_factory.mktemp("dp_trainer")
-    return work, collect_ranks(launch_ranks("trainer", work), "trainer", work, timeout=600)
+    yield work, collect_ranks(launch_ranks("trainer", work), "trainer", work, timeout=600)
+    shutil.rmtree(work, ignore_errors=True)  # the ranks' runs (collect_ranks)
 
 
 def test_shards_are_disjoint_complete_and_equal_in_steps(job):

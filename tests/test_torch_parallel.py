@@ -45,6 +45,7 @@ the ratio as before.
 """
 
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -102,8 +103,24 @@ def launch_ranks(job: str, work_dir, n: int = WORLD, tag: str = None, worker: st
     return procs
 
 
+# The suite writes its outputs under pytest's temp root, which pytest keeps
+# for the last three sessions, on a disk shared with everything else on the
+# host: once it is full, whichever test writes next fails with ENOSPC
+# (ROADMAP F9). So the rank files are removed once read, the module fixtures
+# that write hundreds of MB remove their directories at teardown, and the
+# tests that do so take `tmp_path` below.
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, removed when the test ends (see above)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def collect_ranks(procs: list, job: str, work_dir, timeout: float) -> list:
-    """Each rank's results; a rank that hangs is killed at `timeout`."""
+    """Each rank's results; a rank that hangs is killed at `timeout`. The
+    ranks' files are removed once read: the results are in memory."""
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -114,7 +131,10 @@ def collect_ranks(procs: list, job: str, work_dir, timeout: float) -> list:
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0 and "WORKER OK" in log, f"rank {r}:\n{log[-4000:]}"
     # files the workers of this test wrote
-    out = [torch.load(work_dir / f"{job}_{r}.pt", weights_only=False) for r in range(len(procs))]
+    paths = [work_dir / f"{job}_{r}.pt" for r in range(len(procs))]
+    out = [torch.load(p, weights_only=False) for p in paths]
+    for p in paths:
+        p.unlink()
     for r, res in enumerate(out):
         assert res["foreign_modules"] == [], (r, res["foreign_modules"])
     return out
@@ -188,9 +208,10 @@ def steps(tmp_path_factory):
     one, none = launch_ranks("gan", work, n=1), launch_ranks("gan", work, n=0, tag="gan_no_group")
     f64 = launch_ranks("gan_f64", work, n=0)
     want = _jax_steps(jax_tiny(dropout=0.0), weights, batches)  # while the ranks run
-    return (want, collect_ranks(procs, "steps", work, timeout=300),
-            collect_ranks(one, "gan", work, 300) + collect_ranks(none, "gan_no_group", work, 300),
-            collect_ranks(f64, "gan_f64", work, 300)[0])
+    yield (want, collect_ranks(procs, "steps", work, timeout=300),
+           collect_ranks(one, "gan", work, 300) + collect_ranks(none, "gan_no_group", work, 300),
+           collect_ranks(f64, "gan_f64", work, 300)[0])
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def check_rank(want, got, rank: int, gan: bool = True):

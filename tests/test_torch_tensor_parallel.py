@@ -8,8 +8,8 @@ Three jobs run once for the module, as real processes on gloo
 - 2 ranks on a (data 1 x model 2) mesh take the teacher-forced logits,
   beam-5 ids with the fused head off and on (the plain K1 on each rank's 20
   columns and the merge), the int8 decode's first-step logits and ids (each
-  rank's columns quantized; held bitwise to one process's int8 decode, run
-  in this process), one GAN and one CE step (dropout off, epsilon 1,
+  rank's columns quantized; held bitwise to one process's int8 decode, the
+  worker's int8 job without a group), one GAN and one CE step (dropout off, epsilon 1,
   the penalty's mixing weights given), then the forward and a GAN step with
   dropout on;
 - 4 ranks on a (data 2 x model 2) mesh take the same steps, each data index
@@ -41,6 +41,8 @@ here: its own partitioned steps move D's Adam moments by up to 1.4e-4 of
 max-abs from its single-device step on these weights (2.0e-5 on (1, 2),
 1.4e-4 on (2, 2), 6.7e-5 on (2, 1)), and its D loss by 1.1e-5.
 """
+
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -129,7 +131,9 @@ def _jax_reference(cfg, weights, batch):
 def jobs(tmp_path_factory):
     """(JAX's results, the (1, 2) ranks', the (2, 2) ranks', the model-axis
     RunGAN's ranks', the single RunGAN's, {mesh: the steps without a model
-    axis})."""
+    axis}, the one-process int8 decode's). The ranks and the one-process
+    references are processes of their own (tests/helpers/torch_tp_worker.py);
+    this process computes JAX's references meanwhile."""
     work = tmp_path_factory.mktemp("tp")
     cfg = tiny_test_config(dropout=0.0)
     weights = {"gen": CapGnnModel(cfg, V, device="cpu").state_dict(),
@@ -138,6 +142,7 @@ def jobs(tmp_path_factory):
     batch = _global_batch(cfg, [9, 9, 8, 9, 2, 2, 3, 2], seed=3)
     np.savez(work / "batch.npz", eps_gp=_eps_gp(cfg, 8), **batch)
     procs = {"tp": launch_ranks("tp", work, 2, worker=WORKER),
+             "int8_one": launch_ranks("int8", work, 0, tag="int8_one", worker=WORKER),
              "steps": launch_ranks("steps", work, 4, worker=WORKER),
              "steps_data": launch_ranks("steps", work, 2, tag="steps_data", worker=WORKER),
              "steps_one": launch_ranks("steps", work, 0, tag="steps_one", worker=WORKER),
@@ -146,7 +151,8 @@ def jobs(tmp_path_factory):
     want = _jax_reference(jax_tiny(dropout=0.0), weights, batch)  # while the ranks run
     got = {name: collect_ranks(p, name, work, timeout=600) for name, p in procs.items()}
     plain = {"1x2": got["steps_one"], "2x2": got["steps_data"]}
-    return want, got["tp"], got["steps"], got["trainer"], got["single"][0], plain
+    yield want, got["tp"], got["steps"], got["trainer"], got["single"][0], plain, got["int8_one"][0]
+    shutil.rmtree(work, ignore_errors=True)  # the trainers' checkpoints (collect_ranks)
 
 
 def _check_step(want, plain, got, gan: bool):
@@ -197,34 +203,13 @@ def test_beam_decode_ids_equal_jax_tp_decode(jobs, head):
         np.testing.assert_array_equal(r[f"ids_{head}"].numpy(), want["ids"])
 
 
-@pytest.fixture(scope="module")
-def int8_one_process(jobs, tmp_path_factory):
-    """The worker's int8 decode in this process, without a group, of the
-    jobs' weights (the same seeded init): the whole head quantized at once."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("torch_tp_worker", WORKER)
-    worker = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(worker)
-    cfg = tiny_test_config(dropout=0.0)
-    weights = {"gen": CapGnnModel(cfg, V, device="cpu").state_dict(),
-               "disc": DiscV2(cfg, V, device="cpu").state_dict()}
-    batch = _global_batch(cfg, [9, 9, 8, 9, 2, 2, 3, 2], seed=3)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)  # as the ranks
-    try:
-        return worker.int8_decode(weights, torch.from_numpy(batch["frames"]),
-                                  torch.from_numpy(batch["regions"]))
-    finally:
-        torch.set_num_threads(n)
-
-
-def test_int8_split_head_matches_one_process(jobs, int8_one_process):
+def test_int8_split_head_matches_one_process(jobs):
     """decode_quant="int8" with the head split over the model axis: each
     rank quantizes its own columns (the scales are per column), so the
-    gathered first-step logits equal one process's int8 logits bitwise, and
-    the beam-5 ids, fused head off and on, are equal."""
-    _, tp, *_ = jobs
+    gathered first-step logits equal one process's int8 logits bitwise (the
+    int8 job, a process without a group), and the beam-5 ids, fused head off
+    and on, are equal."""
+    _, tp, *_, int8_one_process = jobs
     for r in tp:
         assert torch.equal(r["int8_logits"], int8_one_process["int8_logits"])
         for head in ("off", "on"):
@@ -234,7 +219,7 @@ def test_int8_split_head_matches_one_process(jobs, int8_one_process):
 @pytest.mark.parametrize("step", ["gan", "ce"])
 @pytest.mark.parametrize("mesh", ["1x2", "2x2"])
 def test_train_step_on_the_model_axis_matches_jax(jobs, step, mesh):
-    want, tp, steps, *_, plain = jobs
+    want, tp, steps, *_, plain, _ = jobs
     ranks = tp if mesh == "1x2" else steps
     ref = want["mesh12" if mesh == "1x2" else "mesh22"]
     for i, r in enumerate(ranks):
@@ -288,7 +273,7 @@ def test_run_gan_epoch_on_the_model_axis_matches_one_process(jobs):
     """tests/test_trainer.py:73: one epoch of RunGAN with the head split
     over 2 ranks ends within 2e-4 of the same epoch in one process
     (word_restore, word_embed), and keeps its layout."""
-    *_, trainer, single, _ = jobs
+    *_, trainer, single, _, _ = jobs
     hidden = single["layout_before"][1]
     assert single["layout_before"] == single["layout_after"] == (V, hidden)
     for r in trainer:
@@ -308,7 +293,7 @@ def test_model_axis_checkpoint_is_whole_and_restores_in_one_process(jobs, tmp_pa
     """The epoch checkpoint holds whole tensors (the head and both moments
     gathered) equal to the ranks' rows; it restores into one process's
     RunGAN, and a model-axis resume continued it to epoch 1."""
-    *_, trainer, _, _ = jobs
+    *_, trainer, _, _, _ = jobs
     r0 = trainer[0]
     payload = torch.load(r0["checkpoint"], weights_only=True)
     for n in HEAD:

@@ -35,6 +35,7 @@ from dlsg_tpu_torch.config import tiny_test_config
 from dlsg_tpu_torch.data.synthetic import SyntheticDataset, make_vocab
 from dlsg_tpu_torch.serve import Captioner
 from dlsg_tpu_torch.train.trainer import RunGAN
+from test_torch_parallel import tmp_path  # noqa: F401  (removed when a test ends)
 from test_torch_train_steps import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(train_batch_size=4, test_batch_size=4, beam_size=2)
