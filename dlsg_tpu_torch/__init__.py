@@ -32,8 +32,9 @@ Subpackages
 - ``convert``    : reference-trained torch .pt -> this package's state_dict
 - ``parallel``   : data parallelism over torch.distributed (one process per
                    card): gradient all-reduce, global-batch sums, eval gather
-- ``utils``      : scalar logging, Stopwatch and torch.profiler traces,
-                   attention heatmaps
+- ``utils``      : scalar logging; the spans and counters that name the
+                   program's phases in a torch.profiler trace, the trace
+                   itself and Stopwatch; attention heatmaps
 - ``serve``      : load-once Captioner (bucketed batches, warmup)
 - ``server``     : the HTTP captioning service over a Captioner
 - ``cli``        : ``python -m dlsg_tpu_torch.cli

@@ -12,6 +12,13 @@ on the side stream), and each handed-out tensor is recorded on the consumer's
 stream, so the caching allocator keeps its memory until the step that reads
 it has run. On the CPU the thread only turns the fields into tensors.
 
+While a `torch.profiler` trace runs, each batch is two spans
+(utils/profiler.py), both with the batch's sequence number as args:
+`dlsg.data.stage` on the thread (its copy into the pinned slot and the issue
+of its copy to the device) and `dlsg.data.wait` in the consumer (the wait for
+the queue and for the copy). The profiler records the thread's span only
+when it profiles all threads.
+
 Close the generator when done with it (`close()`, or iterate inside
 `try`/`finally`): that stops the thread and closes the host iterator. An
 exception raised by the host iterator is raised again in the consumer.
@@ -19,6 +26,7 @@ exception raised by the host iterator is raised again in the consumer.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterable, Iterator, Optional
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from dlsg_tpu_torch.device import DeviceLike
+from dlsg_tpu_torch.utils.profiler import span
 
 BUFFER_SIZE = 2  # batches staged ahead of the consumer, and pinned slots
 DEVICE_KEYS = ("frames", "regions", "captions", "lengths")  # the fields moved to the device
@@ -98,15 +107,16 @@ def prefetch_to_device(
             for n, batch in enumerate(batch_iter):
                 if stop.is_set():
                     break
-                if cuda:
-                    staged, event = to_device(batch, n)
-                else:
-                    staged = {
-                        k: stage_cast(batch[k], stage_dtype if k in CAST_KEYS else None)
-                        for k in DEVICE_KEYS if k in batch
-                    }
-                    event = None
-                staged.update((k, v) for k, v in batch.items() if k not in staged)
+                with span("data.stage", n):
+                    if cuda:
+                        staged, event = to_device(batch, n)
+                    else:
+                        staged = {
+                            k: stage_cast(batch[k], stage_dtype if k in CAST_KEYS else None)
+                            for k in DEVICE_KEYS if k in batch
+                        }
+                        event = None
+                    staged.update((k, v) for k, v in batch.items() if k not in staged)
                 put((staged, event))
         except Exception as e:  # handed to the consumer, which raises it
             put(_Failure(e))
@@ -119,19 +129,20 @@ def prefetch_to_device(
     thread = threading.Thread(target=producer, name="prefetch_to_device", daemon=True)
     thread.start()
     try:
-        while True:
-            item = q.get()
-            if item is _DONE:
-                return
-            if isinstance(item, _Failure):
-                raise item.exc
-            batch, event = item
-            if event is not None:
-                stream = torch.cuda.current_stream(device)
-                stream.wait_event(event)
-                for k in DEVICE_KEYS:
-                    if k in batch:
-                        batch[k].record_stream(stream)
+        for n in itertools.count():
+            with span("data.wait", n):
+                item = q.get()
+                if item is _DONE:
+                    return
+                if isinstance(item, _Failure):
+                    raise item.exc
+                batch, event = item
+                if event is not None:
+                    stream = torch.cuda.current_stream(device)
+                    stream.wait_event(event)
+                    for k in DEVICE_KEYS:
+                        if k in batch:
+                            batch[k].record_stream(stream)
             yield batch
     finally:
         stop.set()

@@ -10,6 +10,11 @@ Scoring is `evaluation/evaluate.py::evaluate`. With `0 <
 decode_two_pass_t1 < max_words` the beam decode runs in two passes
 (`_make_two_pass_fn`).
 
+While a `torch.profiler` trace runs, a decode's phases are spans
+(utils/profiler.py): `dlsg.decode.inputs` (the clips' copy to the device),
+`dlsg.decode.encode` and `dlsg.decode.beam` (each beam loop); the greedy
+decode has the first alone.
+
 With the vocab head split over a mesh's model axis (`parallel/mesh.py`),
 every model peer decodes the same rows. The plain head gathers whole
 logits (models/decoder.py). The fused head runs the kernel on this rank's
@@ -36,6 +41,7 @@ from dlsg_tpu_torch.models.decoder import expand_pre_to_beams
 from dlsg_tpu_torch.ops.beam_search import beam_search
 from dlsg_tpu_torch.ops.topk import top_k
 from dlsg_tpu_torch.parallel import dist
+from dlsg_tpu_torch.utils.profiler import span
 from dlsg_tpu_torch.vocab import END_ID, START_ID
 
 
@@ -97,8 +103,9 @@ def make_decode_fn(
     beam = beam_size if beam_size is not None else cfg.beam_size
 
     def _inputs(frames, regions):
-        return (torch.as_tensor(frames, device=device),
-                None if regions is None else torch.as_tensor(regions, device=device))
+        with span("decode.inputs"):
+            return (torch.as_tensor(frames, device=device),
+                    None if regions is None else torch.as_tensor(regions, device=device))
 
     if beam <= 1:
 
@@ -116,7 +123,9 @@ def make_decode_fn(
 
     @torch.inference_mode()
     def decode_beam(frames, regions):
-        obj, mot = model.encode(*_inputs(frames, regions))
+        inputs = _inputs(frames, regions)
+        with span("decode.encode"):
+            obj, mot = model.encode(*inputs)
         preds, _, alphas, _ = beam_feats(obj, mot, cfg.max_words)
         if return_alpha:
             return preds[:, 0, :], alphas[:, 0]
@@ -150,7 +159,9 @@ def _make_two_pass_fn(
 
     @torch.inference_mode()
     def decode_two_pass(frames, regions):
-        obj, mot = model.encode(*inputs(frames, regions))
+        staged = inputs(frames, regions)
+        with span("decode.encode"):
+            obj, mot = model.encode(*staged)
         B = obj.shape[0]
         bucket = max(1, min(B, cfg.decode_two_pass_bucket or B // 4))
         preds1, _, alphas1, fin = beam_feats(obj, mot, t1)
@@ -209,20 +220,21 @@ def _make_beam_from_feats(model, cfg: DLSGConfig, beam: int) -> Callable:
                 return model.decoder_beam_step(tokens, st, p)
 
         start = torch.full((B,), START_ID, dtype=torch.int64, device=obj.device)
-        return beam_search(
-            start,
-            state,
-            step_fn,
-            end_id=END_ID,
-            max_steps=max_steps,
-            beam_size=beam,
-            normalize=True,  # beam_step returns raw logits
-            sparse_step=fused,
-            # exact for logits in (-88, 80), which this model's tanh(LN) @ W
-            # head guarantees; the fused head computes the exact lse itself
-            fast_lse=cfg.decode_fast_lse and cfg.decode_quant == "none",
-            approx_topk_recall=cfg.decode_approx_topk,
-            return_finished=True,
-        )
+        with span("decode.beam"):
+            return beam_search(
+                start,
+                state,
+                step_fn,
+                end_id=END_ID,
+                max_steps=max_steps,
+                beam_size=beam,
+                normalize=True,  # beam_step returns raw logits
+                sparse_step=fused,
+                # exact for logits in (-88, 80), which this model's tanh(LN) @ W
+                # head guarantees; the fused head computes the exact lse itself
+                fast_lse=cfg.decode_fast_lse and cfg.decode_quant == "none",
+                approx_topk_recall=cfg.decode_approx_topk,
+                return_finished=True,
+            )
 
     return beam_from_feats

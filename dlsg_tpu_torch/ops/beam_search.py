@@ -18,6 +18,7 @@ from typing import Callable, Dict
 import torch
 
 from dlsg_tpu_torch.ops.topk import top_k
+from dlsg_tpu_torch.utils.profiler import count
 
 
 def _lse(lp: torch.Tensor, fast: bool) -> torch.Tensor:
@@ -65,7 +66,11 @@ def beam_search(
       fast_lse: use the one-pass clipped sumexp for that logsumexp.
       early_exit: once every hypothesis has emitted `<end>`, the remaining
         steps are not run: they would emit `<end>` with unchanged scores and
-        zero aux. This checks the tokens on the host each step.
+        zero aux. This reads the number of live hypotheses (last token not
+        `<end>`) on the host before each step until none is left; while a
+        trace runs, each step that runs adds B*beam to the counter
+        `beam.hyp_steps` and that number to `beam.live_hyp_steps`
+        (utils/profiler.py).
 
     Returns:
       predictions [B, beam, max_steps] (best first), log_probs [B, beam],
@@ -107,8 +112,15 @@ def beam_search(
 
     last_preds, last_lp = start_ids, start_lp
     preds_seq, backptr_seq, aux_seq = [], [], []
+    done = False
     for _ in range(max_steps - 1):
-        if early_exit and bool((last_preds == end_id).all()):
+        if early_exit and not done:
+            live = int((last_preds != end_id).sum())  # the step's one host read
+            done = live == 0
+            if not done:
+                count("beam.hyp_steps", B * beam_size)
+                count("beam.live_hyp_steps", live)
+        if done:
             preds_t = torch.full((B, beam_size), end_id, device=dev, dtype=torch.int64)
             preds_seq.append(preds_t)
             backptr_seq.append(identity_ptr)

@@ -17,6 +17,13 @@ rank (JAX's `place_replicated`); each bucket is padded to a multiple of the
 data axis, each data index decodes its contiguous block of rows, and the
 token ids are all-gathered over the data axis and cut back to the request.
 `server.py` feeds the other ranks the leader's requests.
+
+While a `torch.profiler` trace runs, a call is the span `dlsg.serve.caption`
+(utils/profiler.py; args: the call's sequence number and clip count) and
+each bucket's phases its children: `dlsg.serve.stage` (the host arrays cut,
+padded and cast), the decode's own spans (evaluation/decode.py),
+`dlsg.serve.fetch` (the token ids to the host, which waits for the decode)
+and `dlsg.serve.detok` (the ids to strings).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from dlsg_tpu_torch.evaluation.decode import make_decode_fn
 from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.parallel import dist
 from dlsg_tpu_torch.parallel.mesh import Mesh
+from dlsg_tpu_torch.utils.profiler import span
 from dlsg_tpu_torch.vocab import Vocabulary
 from dlsg_tpu_torch.weights import params_from_jax
 
@@ -83,6 +91,7 @@ class Captioner:
         self._beam_fn = make_decode_fn(self.model, cfg, beam_size=cfg.beam_size, device=self.device)
         self._greedy_fn = make_decode_fn(self.model, cfg, beam_size=1, device=self.device)
         self._batch = cfg.test_batch_size
+        self._calls = 0  # caption() calls so far, the trace's sequence number
         self.warm = False  # flipped by warmup()
 
     @classmethod
@@ -151,30 +160,35 @@ class Captioner:
         frames: [N, max_frames, 2560]; regions: [N, max_frames, >=num_obj, 2048].
         Any N, padded internally to a power-of-two bucket. Returns N strings.
         Under a mesh every rank passes the same clips and gets all N."""
+        self._calls += 1
         cfg = self.cfg
-        frames = np.asarray(frames, np.float32)
-        regions = np.asarray(regions, np.float32)[:, :, : cfg.num_obj, :]
         fn = self._greedy_fn if greedy else self._beam_fn
         n_data = self.mesh.n_data if self.mesh is not None else 1
         out: List[str] = []
         B = self._batch
-        for s in range(0, frames.shape[0], B):
-            fr = frames[s : s + B]
-            rg = regions[s : s + B]
-            n = fr.shape[0]
-            b = self._bucket_size(n)
-            b += (-b) % n_data  # a block of rows for each data index
-            if n < b:  # pad to the bucket's shape with copies of the last row
-                fr = np.concatenate([fr, np.repeat(fr[-1:], b - n, 0)], 0)
-                rg = np.concatenate([rg, np.repeat(rg[-1:], b - n, 0)], 0)
-            if n_data > 1:
-                per = b // n_data
-                d = self.mesh.data_index
-                fr, rg = fr[d * per:(d + 1) * per], rg[d * per:(d + 1) * per]
-            sd = cfg.stage_dtype
-            ids = fn(stage_cast(fr, sd), stage_cast(rg, sd))
-            if n_data > 1:
-                (ids,) = dist.all_gather_tensors([ids], self.mesh.data_group)
-                ids = ids.reshape(b, -1)
-            out.extend(self.vocab.decode_tokens(t) for t in ids.cpu().numpy()[:n])
+        with span("serve.caption", (self._calls, len(frames))):
+            for s in range(0, len(frames), B):
+                with span("serve.stage"):
+                    fr = np.asarray(frames[s : s + B], np.float32)
+                    rg = np.asarray(regions[s : s + B], np.float32)[:, :, : cfg.num_obj, :]
+                    n = fr.shape[0]
+                    b = self._bucket_size(n)
+                    b += (-b) % n_data  # a block of rows for each data index
+                    if n < b:  # pad to the bucket's shape with copies of the last row
+                        fr = np.concatenate([fr, np.repeat(fr[-1:], b - n, 0)], 0)
+                        rg = np.concatenate([rg, np.repeat(rg[-1:], b - n, 0)], 0)
+                    if n_data > 1:
+                        per = b // n_data
+                        d = self.mesh.data_index
+                        fr, rg = fr[d * per:(d + 1) * per], rg[d * per:(d + 1) * per]
+                    sd = cfg.stage_dtype
+                    fr, rg = stage_cast(fr, sd), stage_cast(rg, sd)
+                ids = fn(fr, rg)
+                if n_data > 1:
+                    (ids,) = dist.all_gather_tensors([ids], self.mesh.data_group)
+                    ids = ids.reshape(b, -1)
+                with span("serve.fetch"):
+                    ids = ids.cpu().numpy()[:n]
+                with span("serve.detok"):
+                    out.extend(self.vocab.decode_tokens(t) for t in ids)
         return out

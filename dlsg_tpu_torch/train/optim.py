@@ -14,6 +14,8 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from dlsg_tpu_torch.utils.profiler import span
+
 
 def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float, epoch: int) -> float:
     """torch MultiStepLR semantics: lr = base * gamma^|{m : m <= epoch}|."""
@@ -67,13 +69,15 @@ class TrainState:
         return cls(module, opt, config, [n for n, _ in named], params)
 
     def apply_gradients(self, grads: Sequence[torch.Tensor]) -> "TrainState":
-        """One Adam update from `grads`, one per entry of `params`."""
+        """One Adam update from `grads`, one per entry of `params` (the span
+        `dlsg.optim.update` while a trace runs, utils/profiler.py)."""
         clip = self.config.grad_clip
-        for p, g in zip(self.params, grads, strict=True):
-            p.grad = g.clamp(-clip, clip) if clip > 0 else g
-        self.optimizer.step()
-        for p in self.params:
-            p.grad = None
+        with span("optim.update"):
+            for p, g in zip(self.params, grads, strict=True):
+                p.grad = g.clamp(-clip, clip) if clip > 0 else g
+            self.optimizer.step()
+            for p in self.params:
+                p.grad = None
         self.step += 1
         return self
 

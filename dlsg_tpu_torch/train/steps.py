@@ -12,7 +12,11 @@ run_gun.py:147-234 and run_graph.py:109-134).
   `num_D_visual` WGAN-GP discriminator substeps, each scoring real | fake in
   one `groups=2` pass and running the gradient penalty separately at B; then
   the generator update with cap_loss + lambda * (-D(fake)), lambda from the
-  on-device state machine fed with this step's cap_loss.
+  on-device state machine fed with this step's cap_loss. While a
+  `torch.profiler` trace runs, its phases are spans (utils/profiler.py):
+  `dlsg.gan.g_forward` (the D phase's generator forward), `dlsg.gan.d_substep`
+  (each substep; args its index) holding `dlsg.gan.penalty`, and
+  `dlsg.gan.g_update` (G's losses, lambda, gradient and update).
 
 Gradients are taken with `torch.autograd.grad` against each state's own
 parameter list, so the generator head never writes D's gradients and the D
@@ -62,6 +66,7 @@ from dlsg_tpu_torch.ops.remat import remat
 from dlsg_tpu_torch.parallel.dist import all_reduce_grads, global_sum, rank_block_rand
 from dlsg_tpu_torch.train.gan_lambda import LambdaState, lambda_update
 from dlsg_tpu_torch.train.optim import TrainState
+from dlsg_tpu_torch.utils.profiler import span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -189,7 +194,7 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
 
         with _training(gen_model, disc_model):
             # ---- D phase: the generator's outputs, detached (run_gun.py:167-178)
-            with torch.set_grad_enabled(single_fwd):
+            with span("gan.g_forward"), torch.set_grad_enabled(single_fwd):
                 out, obj, mot, alpha = gen_model(frames, regions, captions, epsilon, rng=rng)
             f_caption, obj, mot, alpha = (t.detach() for t in (out, obj, mot, alpha))
             obj2, mot2, att2, alpha2 = (
@@ -209,31 +214,34 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
 
             d_stats = []
             for i in range(num_d):
-                if eps_gp is None:
-                    eps = rank_block_rand((B, 1, 1), rng, dev)
-                else:
-                    eps = torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev)
-                eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
-                scores = d_grouped(real_fake)
-                r_loss, f_loss = batch_share(scores[:B]), batch_share(scores[B:])
-                gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
-                loss_d = f_loss - r_loss + GP_WEIGHT * gp
-                disc_state.apply_gradients(_grads(loss_d, disc_state.params))
-                d_stats.append(torch.stack([loss_d, r_loss - f_loss, gp]).detach())
+                with span("gan.d_substep", i):
+                    if eps_gp is None:
+                        eps = rank_block_rand((B, 1, 1), rng, dev)
+                    else:
+                        eps = torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev)
+                    eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
+                    scores = d_grouped(real_fake)
+                    r_loss, f_loss = batch_share(scores[:B]), batch_share(scores[B:])
+                    with span("gan.penalty"):
+                        gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
+                    loss_d = f_loss - r_loss + GP_WEIGHT * gp
+                    disc_state.apply_gradients(_grads(loss_d, disc_state.params))
+                    d_stats.append(torch.stack([loss_d, r_loss - f_loss, gp]).detach())
 
             # ---- G phase (run_gun.py:183,215-218): D scores the raw logits;
             # proposals and alpha stay detached
-            if not single_fwd:
-                out, obj, mot, alpha = gen_model(frames, regions, captions, epsilon, rng=rng)
-                obj, mot, alpha = obj.detach(), mot.detach(), alpha.detach()
-            cap_loss = masked_cross_entropy(out, captions, lengths)
-            loss_g = wgan_g_loss(disc_model(out, obj, mot, att_mask, alpha, rng=rng))
+            with span("gan.g_update"):
+                if not single_fwd:
+                    out, obj, mot, alpha = gen_model(frames, regions, captions, epsilon, rng=rng)
+                    obj, mot, alpha = obj.detach(), mot.detach(), alpha.detach()
+                cap_loss = masked_cross_entropy(out, captions, lengths)
+                loss_g = wgan_g_loss(disc_model(out, obj, mot, att_mask, alpha, rng=rng))
+                # the global losses in one collective: cap, G, then the substeps' D stats
+                totals = global_sum(torch.cat([torch.stack([cap_loss, loss_g]).detach(),
+                                               torch.stack(d_stats).reshape(-1)]))
+                lstate, gan_lambda = lambda_update(lstate, totals[0])
+                gen_state.apply_gradients(_grads(cap_loss + gan_lambda * loss_g, gen_state.params))
 
-        # the global losses in one collective: cap, G, then the substeps' D stats
-        totals = global_sum(torch.cat([torch.stack([cap_loss, loss_g]).detach(),
-                                       torch.stack(d_stats).reshape(-1)]))
-        lstate, gan_lambda = lambda_update(lstate, totals[0])
-        gen_state.apply_gradients(_grads(cap_loss + gan_lambda * loss_g, gen_state.params))
         loss_d, wasserstein, gp = totals[2:].reshape(num_d, 3).mean(dim=0)
         metrics = {
             "cap_loss": totals[0],

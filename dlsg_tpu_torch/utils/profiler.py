@@ -1,23 +1,103 @@
 """Profiling / tracing hooks (counterpart of `dlsg_tpu/utils/profiler.py`).
 
-- `trace(dir)`: context manager around a `torch.profiler` trace (host ops,
-  and CUDA kernels when a card is present), written into `dir` as a Chrome
-  trace JSON (chrome://tracing, Perfetto). `start_trace`/`stop_trace` are
-  its two halves, for regions that are not one block (the trainer traces
-  steps 3-5 of its first epoch).
+- `span(name, args=None)`: a named phase of the program. While a
+  `torch.profiler` trace runs, it is the user annotation `dlsg.<name>`
+  (`record_function`) in that trace, on the clock of the kernels and copies
+  it launched, so an idle stretch of the device can be put down to the phase
+  the host was in; its host seconds also add to `span_totals()`. With no
+  trace running it costs one check of the profiler's flag and returns a
+  shared null context.
+- `count(name, n=1)`: adds `n` to `counters()` while a trace runs;
+  `reset_counters()` empties both tables.
+- `start_trace(dir)` / `stop_trace(prof, dir)`: a `torch.profiler` trace
+  (host ops, and CUDA kernels when a card is present), written into `dir`
+  as a Chrome trace JSON (chrome://tracing, Perfetto). The trainer traces
+  steps 3-5 of its first epoch.
 - `Stopwatch`: named wall-clock spans with aggregate reporting, replacing the
-  reference's scattered `time.time()` prints (run_gun.py:135,293-295,314-319).
+  reference's scattered `time.time()` prints (run_gun.py:135,293-295,314-319);
+  each is also a `span`.
+
+The profiler records the annotations of the thread that started it (and
+of the autograd threads it reaches), unless it was started with
+`_ExperimentalConfig(profile_all_threads=True)`; `span_totals()` and
+`counters()` take every thread's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NULL = contextlib.nullcontext()
+_lock = threading.Lock()
+_counters: Dict[str, float] = {}
+_span_totals: Dict[str, List[float]] = {}  # name -> [count, seconds]
+
+
+class _Span:
+    """A `dlsg.`-named `record_function` that also adds its host seconds to
+    the span table."""
+
+    __slots__ = ("name", "record", "t0")
+
+    def __init__(self, name: str, args) -> None:
+        self.name = f"dlsg.{name}"
+        self.record = torch.profiler.record_function(
+            self.name, None if args is None else str(args))
+
+    def __enter__(self) -> "_Span":
+        self.t0 = time.perf_counter()
+        self.record.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.record.__exit__(*exc)
+        seconds = time.perf_counter() - self.t0
+        with _lock:
+            total = _span_totals.setdefault(self.name, [0, 0.0])
+            total[0] += 1
+            total[1] += seconds
+
+
+def span(name: str, args=None):
+    """The phase `dlsg.<name>` (module doc); `args` (e.g. a sequence number)
+    is handed to `record_function` as its string."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(name, args)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add `n` to the counter `name` while a trace runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        with _lock:
+            _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[str, float]:
+    """A copy of the counters added while traces ran."""
+    with _lock:
+        return dict(_counters)
+
+
+def span_totals() -> Dict[str, Dict[str, float]]:
+    """Each span entered while a trace ran, by its `dlsg.` name: `count`,
+    and `seconds` of host time summed."""
+    with _lock:
+        return {k: {"count": n, "seconds": s} for k, (n, s) in _span_totals.items()}
+
+
+def reset_counters() -> None:
+    with _lock:
+        _counters.clear()
+        _span_totals.clear()
 
 
 def start_trace(log_dir: str) -> torch.profiler.profile:
@@ -39,15 +119,6 @@ def stop_trace(prof: torch.profiler.profile, log_dir: str) -> str:
     return path
 
 
-@contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[None]:
-    prof = start_trace(log_dir)
-    try:
-        yield
-    finally:
-        stop_trace(prof, log_dir)
-
-
 class Stopwatch:
     def __init__(self) -> None:
         self.totals: Dict[str, float] = defaultdict(float)
@@ -57,7 +128,8 @@ class Stopwatch:
     def span(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
