@@ -94,6 +94,8 @@ def _restore_state(state: TrainState, payload: Dict[str, Any], prefix: str) -> T
     # which TrainState.create takes in the module's registration order
     state.module.load_state_dict(payload[f"{prefix}_params"])
     state.optimizer.load_state_dict(payload[f"{prefix}_opt"])
+    if state.capturable and state.params[0].device.type == "cpu":
+        state.set_capturable(False)  # a card's graphed Adam state, resumed on the CPU
     state.step = int(payload[f"{prefix}_step"])
     return state
 

@@ -162,6 +162,11 @@ def _data_axis() -> Tuple[bool, Optional[dist.ProcessGroup]]:
     return m.n_data > 1, m.data_group
 
 
+def data_axis_active() -> bool:
+    """Whether data-axis collectives run (`global_sum`, `all_reduce_grads`)."""
+    return _data_axis()[0]
+
+
 def global_rows(n: int) -> int:
     """The global row count of a batch of which this rank holds `n` rows:
     every data rank holds the same number (train batches drop the

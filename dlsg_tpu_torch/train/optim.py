@@ -89,6 +89,26 @@ class TrainState:
             for n, p in zip(self.names, self.params)
         }
 
+    @property
+    def capturable(self) -> bool:
+        return all(g.get("capturable", False) for g in self.optimizer.param_groups)
+
+    def set_capturable(self, on: bool) -> "TrainState":
+        """Adam's `capturable` flag. With it each parameter's step count lives
+        on the parameter's device, where the update computes its bias
+        correction, so that the update can be captured in a CUDA graph
+        (train/steps.py); without it, on the host, as a fresh optimizer keeps
+        it. The bias correction is then computed in float32 on the device, not
+        in float64 on the host: the update can differ in its last bits."""
+        for group in self.optimizer.param_groups:
+            group["capturable"] = on
+        for p in self.params:
+            st = self.optimizer.state.get(p)
+            if st and "step" in st:
+                st["step"] = (st["step"].to(p.device, torch.float32) if on
+                              else st["step"].to("cpu"))
+        return self
+
     def set_learning_rate(self, lr: float) -> "TrainState":
         """Per-epoch learning rate (the MultiStepLR counterpart)."""
         for group in self.optimizer.param_groups:

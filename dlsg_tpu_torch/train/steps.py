@@ -18,6 +18,28 @@ run_gun.py:147-234 and run_graph.py:109-134).
   (each substep; args its index) holding `dlsg.gan.penalty`, and
   `dlsg.gan.g_update` (G's losses, lambda, gradient and update).
 
+D's substeps from a CUDA graph. On a card, with no data axis, the step's own
+penalty draws and no remat of D's pass (`d_graph_engaged`), the step
+captures one D substep (the mixing weights' draw, the grouped real | fake
+pass, the penalty with its double backward, D's gradient and Adam update,
+the substep's stats) as a CUDA graph and replays it in place of the eager
+substeps: the graph launches the kernels that the eager substep launches,
+on the same data, without the host dispatching each. The graph reads the
+step's detached G outputs and masks from buffers of its own, into which
+each step copies them, and follows the step's generator: one generator per
+device for the step function's life (`StepRng`), re-seeded each step, so
+every draw lands where the eager substep's would. It bakes in what the key
+(`_d_graph_key`) names: the inputs' shapes, D's Adam settings (its learning
+rate among them), the clamp, the modes, the tensors it updates and the
+functions it calls. In the first step under a key, substep 0 runs eager (it
+makes Adam's state), substep 1 is captured, and every later substep
+replays; a new key drops the graph. D's Adam turns `capturable`
+(train/optim.py), which moves its step count to the card. Everything else
+runs the eager loop; the CPU always does. While a trace runs, the counters
+`gan.d_substeps` (each substep) and `gan.d_substeps_graphed` (each replay)
+say how many substeps the graph ran; `dlsg.gan.penalty` and D's
+`dlsg.optim.update` then appear only in eager substeps and at capture.
+
 Gradients are taken with `torch.autograd.grad` against each state's own
 parameter list, so the generator head never writes D's gradients and the D
 loss never writes G's. A step's random draws (dropout masks, the
@@ -46,7 +68,7 @@ group all of this is the single-process step.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,10 +85,15 @@ from dlsg_tpu_torch.ops.losses import (
     wgan_g_loss,
 )
 from dlsg_tpu_torch.ops.remat import remat
-from dlsg_tpu_torch.parallel.dist import all_reduce_grads, global_sum, rank_block_rand
+from dlsg_tpu_torch.parallel.dist import (
+    all_reduce_grads,
+    data_axis_active,
+    global_sum,
+    rank_block_rand,
+)
 from dlsg_tpu_torch.train.gan_lambda import LambdaState, lambda_update
 from dlsg_tpu_torch.train.optim import TrainState
-from dlsg_tpu_torch.utils.profiler import span
+from dlsg_tpu_torch.utils.profiler import count, span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -78,10 +105,30 @@ def make_masks(captions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return seq_mask, seq_mask[:, :, None] * seq_mask[:, None, :]
 
 
+def step_seed(key: int, step: int) -> int:
+    """The seed of step `step`'s draws under seed `key`."""
+    return int(np.random.SeedSequence([key, step]).generate_state(1, np.uint64)[0])
+
+
 def step_generator(key: int, step: int, device) -> torch.Generator:
     """The generator of step `step` under seed `key`, on `device`."""
-    seed = np.random.SeedSequence([key, step]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(seed))
+    return torch.Generator(device=device).manual_seed(step_seed(key, step))
+
+
+class StepRng:
+    """One generator per device for a step function's life, re-seeded at
+    each step: it draws what `step_generator(key, step, device)` draws, and
+    stays the one object that a CUDA graph follows."""
+
+    def __init__(self) -> None:
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    def __call__(self, key: int, step: int, device) -> torch.Generator:
+        device = torch.device(device)
+        gen = self._gens.get(device)
+        if gen is None:
+            gen = self._gens[device] = torch.Generator(device=device)
+        return gen.manual_seed(step_seed(key, step))
 
 
 @contextlib.contextmanager
@@ -155,6 +202,86 @@ def make_legacy_ce_train_step(model: nn.Module, cfg: DLSGConfig):
                     lambda frames, captions, epsilon, rng: model(frames, captions, epsilon, rng=rng))
 
 
+def d_graph_engaged(device, cfg: DLSGConfig, eps_gp: Optional[torch.Tensor]) -> bool:
+    """Whether a GAN step replays D's substeps from a CUDA graph (module
+    doc): on a card, with no data axis (its all-reduce would sit inside the
+    capture), the step's own penalty draws (`eps_gp` None) and no remat of
+    D's pass (remat moves the generator's state on the host,
+    ops/remat.py)."""
+    return (torch.device(device).type == "cuda" and not data_axis_active()
+            and eps_gp is None and cfg.disc_remat == "none")
+
+
+def _d_graph_key(state: TrainState, inputs: Sequence[torch.Tensor], rng: torch.Generator,
+                 num_d: int) -> tuple:
+    """What a captured D substep bakes in: its inputs' shapes and layouts,
+    D's Adam settings and clamp, the modes, the substep count, the generator
+    it follows, the tensors it updates (parameters and Adam state, by
+    address), and the functions it calls, as the step finds them now."""
+    opt = state.optimizer
+    return (
+        tuple((t.shape, t.stride(), t.dtype, t.device) for t in inputs),
+        tuple(tuple((k, v) for k, v in g.items() if k != "params") for g in opt.param_groups),
+        state.config.grad_clip, state.module.training, num_d, rng,
+        tuple(p.data_ptr() for p in state.params),
+        tuple(t.data_ptr() for p in state.params for t in opt.state.get(p, {}).values()),
+        batch_share, gradient_penalty, type(state).apply_gradients, _grads,
+    )
+
+
+def _capture(fn: Callable[[], None], rng: torch.Generator) -> Callable[[], None]:
+    """`fn` captured as a CUDA graph that follows `rng`'s draws; returns its
+    replay. The capture runs nothing."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(rng)
+    # thread_local: the feed's thread may wait on its own copies meanwhile
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    return graph.replay
+
+
+class _DSubstepGraph:
+    """D's substep as a CUDA graph: made under a key, warmed by one eager
+    substep, captured by the next, then replayed (module doc)."""
+
+    def __init__(self) -> None:
+        self.key: Optional[tuple] = None  # what the warm-up and graph were made under
+        self.warm = False
+        self.replay: Optional[Callable[[], None]] = None
+        self.inputs: Tuple[torch.Tensor, ...] = ()  # the graph's own input buffers
+        self.stats: Optional[torch.Tensor] = None  # and its output buffer
+
+    def load(self, key: tuple, inputs: Sequence[torch.Tensor]) -> None:
+        """A step's start: under the same key the graph's buffers take this
+        step's inputs; under another the graph is dropped."""
+        if key != self.key:
+            self.key, self.warm, self.replay, self.inputs, self.stats = key, False, None, (), None
+        elif self.replay is not None:
+            for buf, t in zip(self.inputs, inputs):
+                buf.copy_(t)
+
+    def run(self, substep, inputs: Sequence[torch.Tensor], state: TrainState,
+            rng: torch.Generator, key_fn) -> torch.Tensor:
+        """One substep: eager as the warm-up, else (captured first) the
+        graph's replay. Returns the substep's stats."""
+        if self.replay is None and not self.warm:
+            stats = substep(*inputs)
+            self.key, self.warm = key_fn(), True  # Adam's state now exists
+            return stats
+        step = state.step  # the capture updates nothing, a replay runs no Python
+        if self.replay is None:
+            self.inputs = tuple(t.clone() for t in inputs)
+
+            def body():  # its output's memory is the graph's: each replay rewrites it
+                self.stats = substep(*self.inputs)
+
+            self.replay = _capture(body, rng)
+        self.replay()
+        state.step = step + 1
+        count("gan.d_substeps_graphed")
+        return self.stats.clone()
+
+
 def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGConfig):
     """The D-LSG adversarial step:
 
@@ -175,6 +302,8 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
     vocab_size = gen_model.vocab_size
     num_d = cfg.num_D_visual
     single_fwd = cfg.gan_single_forward
+    step_rng = StepRng()
+    d_graph = _DSubstepGraph()
 
     def step(
         gen_state: TrainState,
@@ -190,7 +319,7 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
         _, att_mask = make_masks(captions)
         r_caption = to_onehot(captions, vocab_size)
         B = captions.shape[0]
-        rng = step_generator(key, gen_state.step, dev)
+        rng = step_rng(key, gen_state.step, dev)
 
         with _training(gen_model, disc_model):
             # ---- D phase: the generator's outputs, detached (run_gun.py:167-178)
@@ -201,32 +330,54 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
                 torch.cat([t, t], dim=0) for t in (obj, mot, att_mask, alpha)
             )
             real_fake = torch.cat([r_caption, f_caption], dim=0)
+            d_inputs = (r_caption, f_caption, obj, mot, att_mask, alpha,
+                        obj2, mot2, att2, alpha2, real_fake)
 
-            def d_fn(caps):
-                return disc_model(caps, obj, mot, att_mask, alpha, rng=rng)
+            def d_substep(r_caption, f_caption, obj, mot, att_mask, alpha,
+                          obj2, mot2, att2, alpha2, real_fake, eps=None):
+                """One WGAN-GP substep of D: [loss_d, r - f, gp]."""
 
-            # real | fake in one grouped pass, under cfg.disc_remat (the
-            # penalty's pass at B is never rematerialized, as in JAX)
-            d_grouped = remat(
-                lambda caps, rng: disc_model(caps, obj2, mot2, att2, alpha2, groups=2, rng=rng),
-                cfg.disc_remat, rng, module=disc_model,
-            )
+                def d_fn(caps):
+                    return disc_model(caps, obj, mot, att_mask, alpha, rng=rng)
 
+                # real | fake in one grouped pass, under cfg.disc_remat (the
+                # penalty's pass at B is never rematerialized, as in JAX)
+                d_grouped = remat(
+                    lambda caps, rng: disc_model(caps, obj2, mot2, att2, alpha2, groups=2, rng=rng),
+                    cfg.disc_remat, rng, module=disc_model,
+                )
+                if eps is None:
+                    eps = rank_block_rand((B, 1, 1), rng, dev)
+                eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
+                scores = d_grouped(real_fake)
+                r_loss, f_loss = batch_share(scores[:B]), batch_share(scores[B:])
+                with span("gan.penalty"):
+                    gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
+                loss_d = f_loss - r_loss + GP_WEIGHT * gp
+                disc_state.apply_gradients(_grads(loss_d, disc_state.params))
+                return torch.stack([loss_d, r_loss - f_loss, gp]).detach()
+
+            graphed = d_graph_engaged(dev, cfg, eps_gp)
+            if graphed:
+                if not disc_state.capturable:
+                    disc_state.set_capturable(True)
+
+                def key_fn():
+                    return _d_graph_key(disc_state, d_inputs, rng, num_d)
+
+                d_graph.load(key_fn(), d_inputs)
+
+            count("gan.d_substeps_graphed", 0)  # the share reads 0 where no graph runs
             d_stats = []
             for i in range(num_d):
                 with span("gan.d_substep", i):
-                    if eps_gp is None:
-                        eps = rank_block_rand((B, 1, 1), rng, dev)
+                    count("gan.d_substeps")
+                    if graphed:
+                        d_stats.append(d_graph.run(d_substep, d_inputs, disc_state, rng, key_fn))
                     else:
-                        eps = torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev)
-                    eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
-                    scores = d_grouped(real_fake)
-                    r_loss, f_loss = batch_share(scores[:B]), batch_share(scores[B:])
-                    with span("gan.penalty"):
-                        gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
-                    loss_d = f_loss - r_loss + GP_WEIGHT * gp
-                    disc_state.apply_gradients(_grads(loss_d, disc_state.params))
-                    d_stats.append(torch.stack([loss_d, r_loss - f_loss, gp]).detach())
+                        eps = (None if eps_gp is None else
+                               torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev))
+                        d_stats.append(d_substep(*d_inputs, eps=eps))
 
             # ---- G phase (run_gun.py:183,215-218): D scores the raw logits;
             # proposals and alpha stay detached

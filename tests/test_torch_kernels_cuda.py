@@ -804,7 +804,10 @@ def test_tiny_gan_step_with_remat_on_card_equals_none(card, fields):
     teacher-forcing ratio of 0.5 (masks and coins drawn from a card
     generator), under each remat field against the same step without:
     metrics rtol 1e-5, parameters and Adam first moments atol 2e-5
-    (tests/test_torch_remat.py's tolerances)."""
+    (tests/test_torch_remat.py's tolerances). D's Adam is capturable on
+    both sides: without D's remat the step replays D's substeps from a CUDA
+    graph, which takes it (train/steps.py), and its on-device bias
+    correction rounds otherwise than the host's."""
     rng = np.random.default_rng(6)
     n, V = 4, 50
     cfg = tiny_test_config(compute_dtype="bfloat16")
@@ -820,6 +823,7 @@ def test_tiny_gan_step_with_remat_on_card_equals_none(card, fields):
     for c in (cfg, replace(cfg, **fields)):
         g, d = CapGnnModel(c, V, device=card), DiscV2(c, V, device=card)
         gs, ds = TrainState.create(g, make_optimizer(1e-4)), TrainState.create(d, make_optimizer(1e-4))
+        ds.set_capturable(True)
         gs, ds, _, m = make_gan_train_step(g, d, c)(
             gs, ds, init_lambda_state(0.01, device=card), batch, 3, 0.5)
         runs.append(({k: float(v) for k, v in m.items() if k != "sample_tokens"},
