@@ -22,8 +22,15 @@ While a `torch.profiler` trace runs, a call is the span `dlsg.serve.caption`
 (utils/profiler.py; args: the call's sequence number and clip count) and
 each bucket's phases its children: `dlsg.serve.stage` (the host arrays cut,
 padded and cast), the decode's own spans (evaluation/decode.py),
-`dlsg.serve.fetch` (the token ids to the host, which waits for the decode)
-and `dlsg.serve.detok` (the ids to strings).
+`dlsg.serve.fetch` (the token ids to the host, which waits for the decode;
+the program's device counters reach the counters table here) and
+`dlsg.serve.detok` (the ids to strings).
+
+The generator is `CapGnnModel` unless the constructor is handed `arch`, a
+`KimiVLConfig` (models/kimi_vl_config.py): then it is that config's
+Kimi-VL generator, whose module is imported only then, and a request is
+`caption(frames, None)` with frames [N, *arch.feature_shape]. The serving
+knobs (beam size, batch, caption length, fused head) are `cfg`'s.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from dlsg_tpu_torch.evaluation.decode import make_decode_fn
 from dlsg_tpu_torch.models.generator import CapGnnModel
 from dlsg_tpu_torch.parallel import dist
 from dlsg_tpu_torch.parallel.mesh import Mesh
-from dlsg_tpu_torch.utils.profiler import span
+from dlsg_tpu_torch.utils.profiler import flush_device_counts, span
 from dlsg_tpu_torch.vocab import Vocabulary
 from dlsg_tpu_torch.weights import params_from_jax
 
@@ -64,7 +71,8 @@ class Captioner:
     `fast=True` sets the JAX package's approximate-top-k recall; this package
     always takes the exact top-k, so the captions do not change. `mesh`
     (default: none, one process) splits each bucket over its data axis
-    (module doc)."""
+    (module doc). `arch` picks another generator than CapGnnModel (module
+    doc)."""
 
     # smallest batch shape; buckets double from here up to test_batch_size
     MIN_BUCKET = 8
@@ -77,6 +85,7 @@ class Captioner:
         fast: bool = False,
         device: DeviceLike = None,
         mesh: Optional[Mesh] = None,
+        arch=None,
     ):
         self.device = resolve_device(device)
         if fast:
@@ -86,7 +95,9 @@ class Captioner:
         self.mesh = mesh
         self.cfg = cfg
         self.vocab = vocab
-        self.model = CapGnnModel(cfg, len(vocab), device=self.device)
+        self.arch = arch
+        self.model = (CapGnnModel(cfg, len(vocab), device=self.device) if arch is None
+                      else arch.build_generator())
         self.model.load_state_dict(params)
         self._beam_fn = make_decode_fn(self.model, cfg, beam_size=cfg.beam_size, device=self.device)
         self._greedy_fn = make_decode_fn(self.model, cfg, beam_size=1, device=self.device)
@@ -97,9 +108,9 @@ class Captioner:
     @classmethod
     def from_params(
         cls, cfg: DLSGConfig, vocab: Vocabulary, params, fast: bool = False,
-        device: DeviceLike = None, mesh: Optional[Mesh] = None,
+        device: DeviceLike = None, mesh: Optional[Mesh] = None, arch=None,
     ) -> "Captioner":
-        return cls(cfg, vocab, params, fast=fast, device=device, mesh=mesh)
+        return cls(cfg, vocab, params, fast=fast, device=device, mesh=mesh, arch=arch)
 
     @classmethod
     def from_checkpoint(
@@ -148,16 +159,33 @@ class Captioner:
         shapes run; with `greedy`, warms the greedy decoder instead."""
         cfg = self.cfg
         for b in self.bucket_sizes():
-            fr = np.zeros((b, cfg.max_frames, cfg.feature_size), np.float32)
-            rg = np.zeros((b, cfg.max_frames, cfg.num_obj, cfg.region_feature_size), np.float32)
+            if self.arch is None:
+                fr = np.zeros((b, cfg.max_frames, cfg.feature_size), np.float32)
+                rg = np.zeros((b, cfg.max_frames, cfg.num_obj, cfg.region_feature_size), np.float32)
+            else:
+                fr, rg = np.zeros((b, *self.arch.feature_shape), np.float32), None
             self.caption(fr, rg, greedy=greedy)
         self.warm = True
         return len(self.bucket_sizes())
 
+    def _stage(self, x: np.ndarray, b: int):
+        """One input's rows of a bucket as the decode takes them: padded to
+        the bucket's `b` rows with copies of the last row, this data index's
+        block under a mesh, cast for the copy to the card."""
+        n_data = self.mesh.n_data if self.mesh is not None else 1
+        if len(x) < b:
+            x = np.concatenate([x, np.repeat(x[-1:], b - len(x), 0)], 0)
+        if n_data > 1:
+            per = b // n_data
+            d = self.mesh.data_index
+            x = x[d * per:(d + 1) * per]
+        return stage_cast(x, self.cfg.stage_dtype)
+
     def caption(self, frames, regions, greedy: bool = False) -> List[str]:
         """Caption a batch of feature clips.
 
-        frames: [N, max_frames, 2560]; regions: [N, max_frames, >=num_obj, 2048].
+        frames: [N, max_frames, 2560]; regions: [N, max_frames, >=num_obj, 2048]
+        (with `arch`: frames [N, *arch.feature_shape], regions None).
         Any N, padded internally to a power-of-two bucket. Returns N strings.
         Under a mesh every rank passes the same clips and gets all N."""
         self._calls += 1
@@ -166,29 +194,25 @@ class Captioner:
         n_data = self.mesh.n_data if self.mesh is not None else 1
         out: List[str] = []
         B = self._batch
+        rg = None
         with span("serve.caption", (self._calls, len(frames))):
             for s in range(0, len(frames), B):
                 with span("serve.stage"):
                     fr = np.asarray(frames[s : s + B], np.float32)
-                    rg = np.asarray(regions[s : s + B], np.float32)[:, :, : cfg.num_obj, :]
                     n = fr.shape[0]
                     b = self._bucket_size(n)
                     b += (-b) % n_data  # a block of rows for each data index
-                    if n < b:  # pad to the bucket's shape with copies of the last row
-                        fr = np.concatenate([fr, np.repeat(fr[-1:], b - n, 0)], 0)
-                        rg = np.concatenate([rg, np.repeat(rg[-1:], b - n, 0)], 0)
-                    if n_data > 1:
-                        per = b // n_data
-                        d = self.mesh.data_index
-                        fr, rg = fr[d * per:(d + 1) * per], rg[d * per:(d + 1) * per]
-                    sd = cfg.stage_dtype
-                    fr, rg = stage_cast(fr, sd), stage_cast(rg, sd)
+                    fr = self._stage(fr, b)
+                    if regions is not None:
+                        rg = np.asarray(regions[s : s + B], np.float32)[:, :, : cfg.num_obj, :]
+                        rg = self._stage(rg, b)
                 ids = fn(fr, rg)
                 if n_data > 1:
                     (ids,) = dist.all_gather_tensors([ids], self.mesh.data_group)
                     ids = ids.reshape(b, -1)
                 with span("serve.fetch"):
                     ids = ids.cpu().numpy()[:n]
+                    flush_device_counts()
                 with span("serve.detok"):
                     out.extend(self.vocab.decode_tokens(t) for t in ids)
         return out

@@ -8,7 +8,10 @@
   trace running it costs one check of the profiler's flag and returns a
   shared null context.
 - `count(name, n=1)`: adds `n` to `counters()` while a trace runs;
-  `reset_counters()` empties both tables.
+  `count_device(name, value)` adds a device scalar without waiting for the
+  device, and `flush_device_counts()` moves those sums into `counters()`
+  with one wait (serve.py's `dlsg.serve.fetch`, which waits anyway);
+  `reset_counters()` empties the tables.
 - `start_trace(dir)` / `stop_trace(prof, dir)`: a `torch.profiler` trace
   (host ops, and CUDA kernels when a card is present), written into `dir`
   as a Chrome trace JSON (chrome://tracing, Perfetto). The trainer traces
@@ -30,7 +33,7 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -39,6 +42,7 @@ _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
 _counters: Dict[str, float] = {}
 _span_totals: Dict[str, List[float]] = {}  # name -> [count, seconds]
+_device_sums: Dict[str, torch.Tensor] = {}  # name -> a device scalar not yet counted
 
 
 class _Span:
@@ -81,6 +85,31 @@ def count(name: str, n: float = 1) -> None:
             _counters[name] = _counters.get(name, 0) + n
 
 
+def count_device(name: str, value: Callable[[], torch.Tensor]) -> None:
+    """While a trace runs, add the device scalar `value()` to the counter
+    `name` at the next `flush_device_counts()`; `value` is called only while
+    a trace runs, so off a trace nothing is computed."""
+    if _autograd_profiler._is_profiler_enabled:
+        v = value().detach()
+        with _lock:
+            prev = _device_sums.get(name)
+            _device_sums[name] = v if prev is None else prev + v
+
+
+def flush_device_counts() -> None:
+    """Add the device sums of `count_device` to the counters: one wait for
+    the device when there are any, one check of a dict when there are none."""
+    if not _device_sums:
+        return
+    with _lock:
+        sums = list(_device_sums.items())
+        _device_sums.clear()
+    values = [float(v.item()) for _, v in sums]
+    with _lock:
+        for (k, _), v in zip(sums, values):
+            _counters[k] = _counters.get(k, 0) + v
+
+
 def counters() -> Dict[str, float]:
     """A copy of the counters added while traces ran."""
     with _lock:
@@ -98,6 +127,7 @@ def reset_counters() -> None:
     with _lock:
         _counters.clear()
         _span_totals.clear()
+        _device_sums.clear()
 
 
 def start_trace(log_dir: str) -> torch.profiler.profile:
