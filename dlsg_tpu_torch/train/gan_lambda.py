@@ -137,8 +137,10 @@ def lambda_update(lstate: LambdaState, cap_loss: torch.Tensor) -> Tuple[LambdaSt
 
     # get_current_lambda
     idx = sched.clamp(0, counter - 1)
+    # `take`, not `table[idx]`: indexing by a 0-dim tensor reads idx on the host
     table_val = torch.where(
-        state == DECREASE, lstate["dec_schedule"][idx], lstate["inc_schedule"][idx]
+        state == DECREASE, torch.take(lstate["dec_schedule"], idx),
+        torch.take(lstate["inc_schedule"], idx)
     )
     active = state != STABLE
     lam = torch.where(active, table_val, lstate["current_lambda"])

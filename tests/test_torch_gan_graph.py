@@ -1,23 +1,30 @@
-"""D's WGAN-GP substep replayed from a CUDA graph (train/steps.py).
+"""The GAN step replayed from CUDA graphs (train/steps.py): the whole step
+from one graph, or D's WGAN-GP substep alone where G's scan is
+rematerialized.
 
-On the CPU: the rule that decides where the graph engages, the key that
-says when it is captured again, the step's generator (one object re-seeded
+On the CPU: the rule that decides which graph engages, the keys that say
+when a graph is captured again, the step's generator (one object re-seeded
 each step draws what a fresh one would), the counters that
-`d_graph_share.train` reads, and the graphed flow itself with the capture
-replaced by a function that runs the substep again (warm-up, capture,
-replays, captures again after a change of learning rate) against the eager
-loop, bitwise.
+`step_graph_share.train` and `d_graph_share.train` read, and the graphed
+flows themselves with the capture replaced by a function that runs the
+graphed part again into the same output tensors (warm-up, capture, replays,
+captures again after a change of learning rate) against the eager loop,
+bitwise; a new key gives the dropped graph's pool back; a step's metrics
+and lambda state outlive the next replay.
 
 On the card (marker `cuda`; skipped without one; no JAX, so run without the
 suite's conftest):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_gan_graph.py
 
-graphed GAN steps against eager ones with the same capturable Adam, bitwise,
-at tiny widths and at the benchmark's MSR-VTT widths over three steps with
-a change of learning rate; the generator's draws inside and around a graph;
-a checkpoint of D's capturable Adam state, then a graphed step; and the
-benchmark's planted D faults, caught with the graph engaged.
+graphed GAN steps (the whole step, and D's substep alone, also under
+`decoder_remat`) against eager ones with the same capturable Adam, bitwise,
+at tiny widths and at the benchmark's MSR-VTT widths over three steps with a
+change of learning rate;
+the generator's draws inside and around a graph; re-keyed graphs giving
+their pools back; a checkpoint of both capturable Adam states, then a
+graphed step; and the benchmark's planted D faults, caught with the step
+graph engaged.
 """
 
 from dataclasses import replace
@@ -39,9 +46,11 @@ from dlsg_tpu_torch.train.optim import TrainState, make_optimizer
 from dlsg_tpu_torch.train.steps import (
     StepRng,
     _d_graph_key,
+    _step_graph_key,
     d_graph_engaged,
     make_gan_train_step,
     step_generator,
+    step_graph_engaged,
 )
 from dlsg_tpu_torch.utils import profiler
 from portbench import control, harness
@@ -56,6 +65,17 @@ def fresh_tables():
     profiler.reset_counters()
     yield
     profiler.reset_counters()
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread per test, as the suite's other model tests
+    take (tests/test_torch_train_steps.py, which this file cannot import:
+    it imports JAX, and the card runs this file without it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -98,13 +118,15 @@ class _World:
                 init_lambda_state(0.01, device=self.device))
 
 
-def _run_steps(world, batches, lr_change_before=2, capturable=False):
+def _run_steps(world, batches, lr_change_before=2, capturable=()):
     """len(batches) GAN steps from the initial weights, the learning rates
-    halved before step `lr_change_before` (0-based): the metrics of each,
-    then every parameter and Adam moment, and the step counters."""
+    halved before step `lr_change_before` (0-based), the Adam of the states
+    named in `capturable` ("G", "D") made capturable first: the metrics of
+    each, then every parameter and Adam moment, and the step counters."""
     gs, ds, lam = world.states()
-    if capturable:
-        ds.set_capturable(True)
+    for tag, st in (("G", gs), ("D", ds)):
+        if tag in capturable:
+            st.set_capturable(True)
     fn = make_gan_train_step(world.gen, world.disc, world.cfg)
     metrics = []
     for i, b in enumerate(batches):
@@ -134,38 +156,80 @@ def _assert_bitwise(got, want):
     assert not bad, f"{len(bad)} of {len(wt)} tensors differ, max |diff|: {bad}"
 
 
+def _copy_into(dst, src):
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    else:
+        for k in (dst if isinstance(dst, dict) else range(len(dst))):
+            _copy_into(dst[k], src[k])
+
+
 def _counting_captures(monkeypatch, fake=False):
     """Wrap `steps._capture` to count captures; with `fake`, the capture
-    is a function that runs the substep again at each "replay" (the CPU's
-    stand-in: a capture runs nothing, each replay does the work)."""
+    is a function that runs the graphed part again at each "replay" and
+    writes its outputs into the first replay's tensors (the CPU's stand-in:
+    a capture runs nothing, each replay does the work into the graph's own
+    memory)."""
     made = []
     real = steps._capture
 
+    def fake_capture(fn):
+        held = []
+
+        def replay():
+            out = fn()
+            if held:
+                _copy_into(held[0], out)
+            else:
+                held.append(out)
+            return held[0]
+
+        return replay
+
     def capture(fn, rng):
         made.append(rng)
-        return fn if fake else real(fn, rng)
+        return fake_capture(fn) if fake else real(fn, rng)
 
     monkeypatch.setattr(steps, "_capture", capture)
     return made
+
+
+def _graphed_on_the_cpu(monkeypatch, graph):
+    """The graphed flows engaged on the CPU, `graph` "step" (the whole
+    step) or "d" (D's substep alone), Adam left plain (the CPU's cannot be
+    capturable); returns the fake captures made."""
+    monkeypatch.setattr(steps, "d_graph_engaged", lambda dev, cfg, eps_gp: eps_gp is None)
+    if graph == "d":
+        monkeypatch.setattr(steps, "step_graph_engaged", lambda dev, cfg, eps_gp: False)
+    monkeypatch.setattr(optim.TrainState, "set_capturable", lambda self, on: self)
+    return _counting_captures(monkeypatch, fake=True)
 
 
 # ---------------------------------------------------------------- CPU
 
 
 @pytest.mark.parametrize("device,fields,eps_gp,data_axis,engaged", [
-    ("cpu", {}, None, False, False),
-    ("cuda", {}, None, True, False),
-    ("cuda", {}, torch.zeros(5, 4), False, False),
-    ("cuda", {"disc_remat": "dots"}, None, False, False),
-    ("cuda", {"disc_remat": "full"}, None, False, False),
-    ("cuda", {}, None, False, True),
-], ids=["cpu", "data-axis", "eps_gp", "remat-dots", "remat-full", "card"])
+    ("cpu", {}, None, False, "eager"),
+    ("cuda", {}, None, True, "eager"),
+    ("cuda", {}, torch.zeros(5, 4), False, "eager"),
+    ("cuda", {"disc_remat": "dots"}, None, False, "eager"),
+    ("cuda", {"disc_remat": "full"}, None, False, "eager"),
+    ("cuda", {}, None, False, "step"),
+    ("cuda", {"decoder_remat": "dots"}, None, False, "d"),
+    ("cuda", {"decoder_remat": "full"}, None, False, "d"),
+    ("cuda", {"decoder_remat": "full", "disc_remat": "dots"}, None, False, "eager"),
+    ("cpu", {"decoder_remat": "dots"}, None, False, "eager"),
+], ids=["cpu", "data-axis", "eps_gp", "remat-dots", "remat-full", "card", "decoder-remat-dots",
+        "decoder-remat-full", "both-remats", "cpu-decoder-remat"])
 def test_where_the_graph_engages(monkeypatch, device, fields, eps_gp, data_axis, engaged):
-    """Only on a card, with no data axis, the step's own penalty draws and no
-    remat of D's pass; everything else runs the eager loop."""
+    """The whole step's graph only on a card, with no data axis, the step's
+    own penalty draws and no remat; D's substep graph alone where only G's
+    scan is rematerialized; everything else runs the eager loop."""
     monkeypatch.setattr(steps, "data_axis_active", lambda: data_axis)
     cfg = replace(tiny_test_config(), **fields)
-    assert d_graph_engaged(torch.device(device), cfg, eps_gp) is engaged
+    dev = torch.device(device)
+    assert step_graph_engaged(dev, cfg, eps_gp) is (engaged == "step")
+    assert d_graph_engaged(dev, cfg, eps_gp) is (engaged in ("step", "d"))
 
 
 def test_the_graph_key_follows_what_the_graph_bakes_in(monkeypatch):
@@ -194,6 +258,45 @@ def test_the_graph_key_follows_what_the_graph_bakes_in(monkeypatch):
     assert _d_graph_key(state, inputs(4, 0.0), rng, 5) != key
 
 
+@pytest.mark.parametrize("change", ["epsilon", "g_lr", "d_lr", "g_clamp", "single_forward",
+                                    "num_d", "lambda_window", "batch", "g_adam_state",
+                                    "planted_g_loss"])
+def test_the_step_graph_key_follows_what_the_step_bakes_in(monkeypatch, change):
+    """Each thing that the whole step's graph bakes in changes its key: the
+    teacher-forcing ratio, either learning rate, G's clamp, the forward's
+    sharing, the substep count, the lambda state's shape, the batch's shape,
+    G's Adam tensors, a function planted in the step. Another batch and
+    lambda state of the same shapes keep it."""
+    cfg = tiny_test_config()
+    gs = TrainState.create(CapGnnModel(cfg, V, device="cpu"), make_optimizer(1e-3, cfg.grad_clip))
+    ds = TrainState.create(DiscV2(cfg, V, device="cpu"), make_optimizer(1e-3))
+    rng = StepRng()(KEY, 0, "cpu")
+
+    def key(gs=gs, n=4, fill=0, window=200, epsilon=0.9, single=True, num_d=5):
+        lam = init_lambda_state(0.01 + fill, window=window, device="cpu")
+        inputs = (torch.full((n, cfg.max_frames, cfg.feature_size), float(fill)),
+                  torch.full((n, cfg.max_words), fill, dtype=torch.int64), *lam.values())
+        return _step_graph_key(gs, ds, inputs, rng, num_d, epsilon, single)
+
+    base = key()
+    assert key(fill=1) == base
+    changed = {
+        "epsilon": lambda: key(epsilon=0.8),
+        "g_lr": lambda: key(gs=gs.set_learning_rate(5e-4)),
+        "d_lr": lambda: (ds.set_learning_rate(5e-4), key())[1],
+        "g_clamp": lambda: key(gs=TrainState(gs.module, gs.optimizer,
+                                             replace(gs.config, grad_clip=1.0), gs.names, gs.params)),
+        "single_forward": lambda: key(single=False),
+        "num_d": lambda: key(num_d=4),
+        "lambda_window": lambda: key(window=100),
+        "batch": lambda: key(n=8),
+        "g_adam_state": lambda: key(gs=gs.apply_gradients([torch.zeros_like(p) for p in gs.params])),
+        "planted_g_loss": lambda: (monkeypatch.setattr(steps, "wgan_g_loss", lambda x: x.sum()),
+                                   key())[1],
+    }[change]()
+    assert changed != base
+
+
 def test_one_generator_reseeded_each_step_draws_what_a_fresh_one_does():
     """Across two steps and draws of several sizes (dropout masks, the
     penalty's mixing weights): bitwise, and the same object each step."""
@@ -209,8 +312,10 @@ def test_one_generator_reseeded_each_step_draws_what_a_fresh_one_does():
 
 
 def test_the_counters_on_the_cpu_and_d_graph_share_reads_zero():
-    """Under a trace every substep counts in `gan.d_substeps` and none in
-    `gan.d_substeps_graphed`: the benchmark's `d_graph_share.train` reads 0."""
+    """Under a trace every step counts in `gan.steps` and every substep in
+    `gan.d_substeps`, none in `gan.steps_graphed` or
+    `gan.d_substeps_graphed`: the benchmark's `d_graph_share.train` and
+    `step_graph_share.train` read 0."""
     cfg = tiny_test_config(num_D_visual=3)
     world = _World(cfg, V, "cpu")
     gs, ds, lam = world.states()
@@ -223,17 +328,20 @@ def test_the_counters_on_the_cpu_and_d_graph_share_reads_zero():
     finally:
         prof.stop()
     c = profiler.counters()
+    assert c["gan.steps"] == 2 and c["gan.steps_graphed"] == 0
     assert c["gan.d_substeps"] == 2 * cfg.num_D_visual
     assert c["gan.d_substeps_graphed"] == 0
-    entry = harness.load_json("metrics", "d_graph_share.train.json")
-    reader = harness.load_module("readers", entry["reader"])
-    assert reader.read({}, **entry["args"]) == 0.0
+    for name in ("d_graph_share.train.json", "step_graph_share.train.json"):
+        entry = harness.load_json("metrics", name)
+        reader = harness.load_module("readers", entry["reader"])
+        assert reader.read({}, **entry["args"]) == 0.0
 
 
 def test_a_graphed_adam_checkpoint_resumes_on_the_cpu(tmp_path):
-    """D's Adam state saved capturable (as on a card whose GAN step replays
-    D's substeps) and resumed on the CPU, where Adam cannot be capturable:
-    plain again, its step counts on the host, and a GAN step runs."""
+    """Both Adam states saved capturable (as on a card whose GAN step
+    replays from a graph) and resumed on the CPU, where Adam cannot be
+    capturable: plain again, their step counts on the host, and a GAN step
+    runs."""
     cfg = tiny_test_config(num_D_visual=2)
     world = _World(cfg, V, "cpu")
     gs, ds, lam = world.states()
@@ -241,17 +349,20 @@ def test_a_graphed_adam_checkpoint_resumes_on_the_cpu(tmp_path):
     gs, ds, lam, _ = fn(gs, ds, lam, _batch(cfg, 4, V), KEY, 0.9)
     path = ckpt.save_train(str(tmp_path), 1, gs, ds, lam)
     payload = torch.load(path, weights_only=True)
-    for group in payload["disc_opt"]["param_groups"]:
-        group["capturable"] = True
+    for opt in ("gen_opt", "disc_opt"):
+        for group in payload[opt]["param_groups"]:
+            group["capturable"] = True
     torch.save(payload, path)
 
     gs2, ds2, lam2 = world.states()
     out = ckpt.restore_train(str(tmp_path), 1, gs2, ds2, lam2)
-    ds2 = out["disc_state"]
+    gs2, ds2 = out["gen_state"], out["disc_state"]
+    assert not gs2.capturable and gs2.step == gs.step == 1
     assert not ds2.capturable and ds2.step == ds.step == cfg.num_D_visual
-    assert {ds2.optimizer.state[p]["step"].device.type for p in ds2.params} == {"cpu"}
-    _, ds2, _, m = fn(out["gen_state"], ds2, out["gan_lambda_state"], _batch(cfg, 4, V), KEY, 0.9)
-    assert ds2.step == 2 * cfg.num_D_visual and torch.isfinite(m["loss_D"])
+    for st in (gs2, ds2):
+        assert {st.optimizer.state[p]["step"].device.type for p in st.params} == {"cpu"}
+    gs2, ds2, _, m = fn(gs2, ds2, out["gan_lambda_state"], _batch(cfg, 4, V), KEY, 0.9)
+    assert gs2.step == 2 and ds2.step == 2 * cfg.num_D_visual and torch.isfinite(m["loss_D"])
 
 
 @pytest.mark.parametrize("graphed,total,share", [(None, None, None), (0, 5, 0.0), (2, 5, 40.0),
@@ -278,20 +389,51 @@ def test_d_graph_share_is_the_benchmark_entry_over_the_two_counters(graphed, tot
     assert value == (None if share is None else pytest.approx(share))
 
 
-def test_the_graphed_flow_equals_the_eager_loop_on_the_cpu(monkeypatch):
-    """The graphed flow with the capture replaced by the substep run again
-    at each replay: three steps, the learning rates halved before the third,
-    equal the eager loop bitwise; a capture in the first step (after the
-    eager warm-up) and again after the change, and every other substep
-    counted as a replay."""
-    cfg = tiny_test_config(num_D_visual=3)
+@pytest.mark.parametrize("graphed,total,share", [(None, None, None), (0, 5, 0.0), (3, 5, 60.0),
+                                                 (5, 5, 100.0)])
+def test_step_graph_share_is_the_benchmark_entry_over_the_two_counters(graphed, total, share):
+    """`step_graph_share.train` as the benchmark declares it: the program
+    counter reader over `gan.steps_graphed` / `gan.steps`, in the GAN cell;
+    silent where nothing was counted (as in a program without the
+    counters)."""
+    (entry,) = [m for m in harness.benchmark()["per_layer"] if m["name"] == "step_graph_share.train"]
+    assert entry == {"name": "step_graph_share.train", "unit": "%", "better": "higher",
+                     "source": "program_counter", "layer": "train step (train/steps.py, models/)",
+                     "moves": "train_clips_per_s", "workloads": ["msrvtt-gan-b128"]}
+    spec = harness.load_json("metrics", "step_graph_share.train.json")
+    assert spec == {"reader": "program_counter",
+                    "args": {"num": "gan.steps_graphed", "den": "gan.steps"}}
+    if total is not None:
+        prof = profile(activities=[ProfilerActivity.CPU])
+        prof.start()
+        profiler.count("gan.steps", total)
+        profiler.count("gan.steps_graphed", graphed)
+        prof.stop()
+    value = harness.load_module("readers", spec["reader"]).read({}, **spec["args"])
+    assert value == (None if share is None else pytest.approx(share))
+
+
+@pytest.mark.parametrize("graph,single_forward,captures,steps_graphed,d_graphed", [
+    ("step", True, 2, 2, 6),
+    ("step", False, 2, 2, 6),
+    ("d", True, 2, 0, 8),
+], ids=["step", "step-two-forwards", "d-substep"])
+def test_the_graphed_flow_equals_the_eager_loop_on_the_cpu(
+        monkeypatch, graph, single_forward, captures, steps_graphed, d_graphed):
+    """The graphed flow with the capture replaced by the graphed part run
+    again at each replay: three steps, the learning rates halved before the
+    third, equal the eager loop bitwise. The whole step: the first step
+    eager (it makes both Adam states), a capture in the second and again in
+    the third, after the change; each replay counts one graphed step and
+    `num_D_visual` graphed substeps. D's substep alone: the first substep
+    eager, a capture by the second and again by the third step's first;
+    every other substep a replay."""
+    cfg = tiny_test_config(num_D_visual=3, gan_single_forward=single_forward)
     world = _World(cfg, V, "cpu")
     batches = [_batch(cfg, 4, V, seed=s) for s in (1, 2, 3)]
     want = _run_steps(world, batches)
 
-    monkeypatch.setattr(steps, "d_graph_engaged", lambda dev, cfg, eps_gp: eps_gp is None)
-    monkeypatch.setattr(optim.TrainState, "set_capturable", lambda self, on: self)
-    made = _counting_captures(monkeypatch, fake=True)
+    made = _graphed_on_the_cpu(monkeypatch, graph)
     prof = profile(activities=[ProfilerActivity.CPU])
     prof.start()
     try:
@@ -299,10 +441,50 @@ def test_the_graphed_flow_equals_the_eager_loop_on_the_cpu(monkeypatch):
     finally:
         prof.stop()
     _assert_bitwise(got, want)
-    assert len(made) == 2
+    assert len(made) == captures
     c = profiler.counters()
-    assert c["gan.d_substeps"] == 9
-    assert c["gan.d_substeps_graphed"] == 9 - 2  # the two warm-up substeps ran eager
+    assert (c["gan.steps"], c["gan.steps_graphed"]) == (3, steps_graphed)
+    assert (c["gan.d_substeps"], c["gan.d_substeps_graphed"]) == (9, d_graphed)
+
+
+@pytest.mark.parametrize("graph", ["step", "d"], ids=["step", "d-substep"])
+def test_a_new_key_gives_the_dropped_graphs_pool_back(monkeypatch, graph):
+    """The allocator frees a dropped graph's pool only when asked, and never
+    inside the next capture: a new key after a capture asks once, before
+    the capture that follows; the first capture, with nothing to drop,
+    does not ask."""
+    cfg = tiny_test_config(num_D_visual=2)
+    world = _World(cfg, V, "cpu")
+    made = _graphed_on_the_cpu(monkeypatch, graph)
+    emptied = []
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: emptied.append(len(made)))
+    _run_steps(world, [_batch(cfg, 4, V, seed=s) for s in (1, 2, 3)])
+    assert len(made) == 2 and emptied == [1]
+
+
+def test_a_steps_metrics_and_lambda_state_outlive_the_next_replay(monkeypatch):
+    """The benchmark and the trainer read a step's cap_loss after the next
+    step was launched: what a replayed step hands back (its metrics and
+    lambda state) stays its own while later replays write the graph's
+    outputs again."""
+    cfg = tiny_test_config(num_D_visual=2)
+    world = _World(cfg, V, "cpu")
+    made = _graphed_on_the_cpu(monkeypatch, "step")
+    gs, ds, lam = world.states()
+    fn = make_gan_train_step(world.gen, world.disc, cfg)
+    handed, kept = [], []
+    for s in (1, 2, 3, 4):
+        gs, ds, lam, m = fn(gs, ds, lam, _batch(cfg, 4, V, seed=s), KEY, 0.9)
+        handed.append((m, lam))
+        kept.append([{k: v.clone() for k, v in d.items()} for d in (m, lam)])
+    assert len(made) == 1
+    for i, (now, then) in enumerate(zip(handed, kept)):
+        for d, d0 in zip(now, then):
+            for k, v in d0.items():
+                assert torch.equal(d[k], v), (i, k)
+    # the replays' outputs differ, so a shared tensor would have shown
+    assert kept[2][1]["count"] != kept[3][1]["count"]
+    assert not torch.equal(kept[2][0]["cap_loss"], kept[3][0]["cap_loss"])
 
 
 # ---------------------------------------------------------------- card
@@ -328,7 +510,8 @@ def test_the_step_generator_inside_and_around_a_graph_on_card(card):
     step_rng = StepRng()
     gen = step_rng(KEY, 0, card)
     out = {}
-    replay = steps._capture(lambda: out.update(t=inside(gen)), gen)
+    with steps._on(torch.cuda.Stream(card)):
+        replay = steps._capture(lambda: out.update(t=inside(gen)), gen)
     for step in (0, 1):
         fresh = step_generator(KEY, step, card)
         want = before(fresh) + inside(fresh) + inside(fresh) + after(fresh)
@@ -343,12 +526,20 @@ def test_the_step_generator_inside_and_around_a_graph_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("widths", ["tiny", "msrvtt"])
-def test_graphed_gan_steps_equal_eager_on_card(card, widths, monkeypatch):
+@pytest.mark.parametrize("widths,graph,single_forward,decoder_remat", [
+    ("tiny", "step", True, "none"), ("tiny", "step", False, "none"), ("tiny", "d", True, "none"),
+    ("msrvtt", "step", True, "none"), ("msrvtt", "d", True, "none"),
+    ("tiny", "d", True, "full"), ("msrvtt", "d", True, "dots"),
+], ids=["tiny-step", "tiny-step-two-forwards", "tiny-d-substep", "msrvtt-step", "msrvtt-d-substep",
+        "tiny-decoder-remat-full", "msrvtt-decoder-remat-dots"])
+def test_graphed_gan_steps_equal_eager_on_card(card, widths, graph, single_forward, decoder_remat,
+                                               monkeypatch):
     """Three GAN steps, the learning rates halved before the third: the
-    graphed substeps against the eager loop with the same capturable Adam,
-    bitwise (metrics, parameters, both Adam moments, step counters), with a
-    capture in the first step and again after the change."""
+    whole step's graph (or D's substep graph alone: forced, or where G's
+    scan is rematerialized, the rule's own choice) against the eager loop
+    with the same capturable Adam, bitwise (metrics, parameters, both Adam
+    moments, step counters), with a capture in the first graphed part after
+    the warm-up and again after the change."""
     if widths == "tiny":
         cfg, vocab, n = tiny_test_config(), 50, 4
     else:
@@ -356,6 +547,9 @@ def test_graphed_gan_steps_equal_eager_on_card(card, widths, monkeypatch):
         run = harness.Run(SimpleNamespace(seed=KEY, seconds=0, trace=0), spec,
                           harness.cell_of(spec, "msrvtt-gan-b128"), 0.0, device=card)
         cfg, vocab, n = run.program_config("training"), run.config["vocab_size"], 16
+    cfg = replace(cfg, gan_single_forward=single_forward, decoder_remat=decoder_remat)
+    if graph == "d" and decoder_remat == "none":
+        monkeypatch.setattr(steps, "step_graph_engaged", lambda dev, cfg, eps_gp: False)
     world = _World(cfg, vocab, card)
     batches = [_batch(cfg, n, vocab, seed=s) for s in (1, 2, 3)]
     made = _counting_captures(monkeypatch)
@@ -363,19 +557,55 @@ def test_graphed_gan_steps_equal_eager_on_card(card, widths, monkeypatch):
     assert len(made) == 2
     with monkeypatch.context() as m:
         m.setattr(steps, "d_graph_engaged", lambda dev, cfg, eps_gp: False)
-        want = _run_steps(world, batches, capturable=True)
+        want = _run_steps(world, batches, capturable=("G", "D") if graph == "step" else ("D",))
     assert len(made) == 2
     _assert_bitwise(got, want)
 
 
 @pytest.mark.cuda
+def test_re_keyed_step_graphs_give_their_pools_back_on_card(card, monkeypatch):
+    """Four new keys in a row (the learning rates halved, as the trainer's
+    milestones do), each followed by a capture and a replay, at the
+    benchmark's MSR-VTT widths: the memory the card holds stays within half
+    a graph's pool of what it held after the first capture, where a pool
+    kept a re-key would add one each time."""
+    spec = harness.benchmark()
+    run = harness.Run(SimpleNamespace(seed=KEY, seconds=0, trace=0), spec,
+                      harness.cell_of(spec, "msrvtt-gan-b128"), 0.0, device=card)
+    cfg, vocab = run.program_config("training"), run.config["vocab_size"]
+    world = _World(cfg, vocab, card)
+    batch = _batch(cfg, 16, vocab)
+    gs, ds, lam = world.states()
+    fn = make_gan_train_step(world.gen, world.disc, cfg)
+    made = _counting_captures(monkeypatch)
+    gs, ds, lam, _ = fn(gs, ds, lam, batch, KEY, 0.9)  # the warm-up, eager
+    torch.cuda.synchronize(card)
+    before = torch.cuda.memory_reserved(card)
+    reserved = []
+    for k in range(5):
+        if k:
+            for st in (gs, ds):
+                st.set_learning_rate(st.optimizer.param_groups[0]["lr"] / 2)
+        for _ in range(2):  # a capture, then a replay
+            gs, ds, lam, m = fn(gs, ds, lam, batch, KEY, 0.9)
+        assert torch.isfinite(m["loss_D"])
+        torch.cuda.synchronize(card)
+        reserved.append(torch.cuda.memory_reserved(card))
+    assert len(made) == 5
+    pool = reserved[0] - before
+    assert pool > 0, (before, reserved)
+    assert max(reserved) - reserved[0] < pool / 2, (before, reserved)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("capturable_before", [False, True])
 def test_a_checkpoint_of_capturable_adam_then_a_graphed_step_on_card(
-        card, tmp_path, capturable_before):
+        card, tmp_path, monkeypatch, capturable_before):
     """Two graphed steps, a checkpoint, a third step; against fresh states
     (plain or already capturable) restored from the checkpoint, which makes
-    D's Adam capturable with its step counts on the card, as saved, then the
-    third step by a new step function: bitwise."""
+    both Adam states capturable with their step counts on the card, as
+    saved, then the third step by a new step function (eager, its warm-up):
+    bitwise; then a fourth step each, the restored side's captured."""
     cfg = tiny_test_config()
     world = _World(cfg, 50, card)
     batches = [_batch(cfg, 4, 50, seed=s) for s in (1, 2, 3)]
@@ -383,34 +613,43 @@ def test_a_checkpoint_of_capturable_adam_then_a_graphed_step_on_card(
     fn = make_gan_train_step(world.gen, world.disc, cfg)
     for b in batches[:2]:
         gs, ds, lam, _ = fn(gs, ds, lam, b, KEY, 0.9)
-    assert ds.capturable
+    assert gs.capturable and ds.capturable
     ckpt.save_train(str(tmp_path), 1, gs, ds, lam)
-    gs, ds, lam, want = fn(gs, ds, lam, batches[2], KEY, 0.9)
-    want_t = {k: v.clone() for k, v in {**world.gen.state_dict(), **world.disc.state_dict()}.items()}
+    want, want_t = [], []
+    for b in (batches[2], batches[0]):
+        gs, ds, lam, m = fn(gs, ds, lam, b, KEY, 0.9)
+        want.append(m)
+        want_t.append({k: v.clone() for k, v in
+                       {**world.gen.state_dict(), **world.disc.state_dict()}.items()})
 
     gs2, ds2, lam2 = world.states()
-    ds2.set_capturable(capturable_before)
+    for st in (gs2, ds2):
+        st.set_capturable(capturable_before)
     out = ckpt.restore_train(str(tmp_path), 1, gs2, ds2, lam2)
     gs2, ds2, lam2 = out["gen_state"], out["disc_state"], out["gan_lambda_state"]
-    assert ds2.capturable and not gs2.capturable
-    assert {ds2.optimizer.state[p]["step"].device.type for p in ds2.params} == {"cuda"}
-    gs2, ds2, lam2, got = make_gan_train_step(world.gen, world.disc, cfg)(
-        gs2, ds2, lam2, batches[2], KEY, 0.9)
-    assert ds2.step == ds.step and gs2.step == gs.step
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
-    for k, v in {**world.gen.state_dict(), **world.disc.state_dict()}.items():
-        assert torch.equal(v, want_t[k]), k
+    for st in (gs2, ds2):
+        assert st.capturable
+        assert {st.optimizer.state[p]["step"].device.type for p in st.params} == {"cuda"}
+    made = _counting_captures(monkeypatch)
+    fn2 = make_gan_train_step(world.gen, world.disc, cfg)
+    for i, b in enumerate((batches[2], batches[0])):
+        gs2, ds2, lam2, got = fn2(gs2, ds2, lam2, b, KEY, 0.9)
+        assert ds2.step == 2 * cfg.num_D_visual + (i + 1) * cfg.num_D_visual
+        for k in want[i]:
+            assert torch.equal(got[k], want[i][k]), (i, k)
+        for k, v in {**world.gen.state_dict(), **world.disc.state_dict()}.items():
+            assert torch.equal(v, want_t[i][k]), (i, k)
+    assert gs2.step == gs.step and ds2.step == ds.step and len(made) == 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["", *sorted(control.FAULTS)])
 def test_planted_d_faults_are_caught_with_the_graph_on_card(card, monkeypatch, fault):
     """The benchmark's training run at tiny widths on the card, with the
-    graph engaged: sound, it is correct; with D's Wasserstein term over half
-    its batch or without its penalty (planted by name in train/steps.py, so
-    in the captured substep too), G's first step is untouched and D's
-    numbers fail."""
+    whole step's graph engaged: sound, it is correct; with D's Wasserstein
+    term over half its batch or without its penalty (planted by name in
+    train/steps.py, so in the captured step too), G's first step is
+    untouched and D's numbers fail."""
     made = _counting_captures(monkeypatch)
     r = tiny_run("msrvtt-gan-b128", seed=4_100_001_805)
     r.device = card
