@@ -113,15 +113,16 @@ line per phase:
 5a. remat (ops/remat.py): the train phase's config, weights, batch and
    seeds (dropout 0.3 on) under each (decoder_remat, disc_remat) of (none,
    none), (dots, none), (full, none), (none, dots), (none, full), each
-   from the same start weights, both Adam states capturable (as the rows
-   whose steps replay from a CUDA graph take them): the GAN step's ms
-   (median of 3 after a warm-up, CUDA events) and peak memory, and the
-   same for the CE step on the decoder_remat rows. The first GAN step's
-   and CE step's metrics, parameters and Adam first moments of each row
-   must lie within MOMENT_TOL bf16 of each tensor's max-abs from the
-   (none, none) row's, and, from one fp32 run of every row at batch 32,
-   within MOMENT_TOL fp32; `full` must lower the GAN step's peak below
-   none's, for the decoder and for D; no kernel launches;
+   from the same start weights, each row's GAN step replayed from one CUDA
+   graph (train/steps.py): the GAN step's ms (median of 3 after a warm-up
+   that also captures, CUDA events) and peak memory with the graph's pool
+   counted, and the same for the CE step on the decoder_remat rows. The
+   first GAN step's and CE step's metrics, parameters and Adam first
+   moments of each row must lie within MOMENT_TOL bf16 of each tensor's
+   max-abs from the (none, none) row's, and, from one fp32 run of every
+   row at batch 32, within MOMENT_TOL fp32; `full` must lower the GAN
+   step's peak below none's, for the decoder and for D; no kernel
+   launches;
 5b. graph_variants (models/graph_variants.py, which no trainer runs):
    LatentGNN, GNN, GraphAttentionLayer, EncoderVisualGraph and
    EncoderVisualGAT at MSR-VTT widths in fp32 (frames [128, 26, 2560],
@@ -1174,11 +1175,6 @@ def remat_run(cfg: DLSGConfig, start: dict, batch: dict, policy, timed: bool) ->
     D.load_state_dict(start["D"])
     gs = TrainState.create(G, make_optimizer(TRAIN_LR))
     ds = TrainState.create(D, make_optimizer(TRAIN_LR))
-    # every row's Adam capturable, as the rows whose steps replay from a
-    # CUDA graph take it (train/steps.py): its on-device bias correction
-    # rounds otherwise than the host's, a difference of Adam's, not remat's
-    gs.set_capturable(True)
-    ds.set_capturable(True)
     lstate = init_lambda_state(LAMBDA0, device=DEVICE)
     gan_step = make_gan_train_step(G, D, pcfg)
     out = {}

@@ -56,6 +56,7 @@ from torch import nn
 
 from dlsg_tpu_torch.kernels.vocab_head import prepare_head
 from dlsg_tpu_torch.models.kimi_vl_config import KimiVLConfig
+from dlsg_tpu_torch.utils.cuda_graph import Graph
 from dlsg_tpu_torch.utils.profiler import count, count_device, span
 
 PREFILL_ROWS = 32768  # token rows a prefill MLP or MoE call takes at once
@@ -383,28 +384,21 @@ class KimiVLGenerator(nn.Module):
 
 class _StepGraph:
     """One beam step (`KimiVLGenerator._step`) of G hypotheses with t earlier
-    caption tokens against one prefix cache, captured as a CUDA graph after
-    an eager warm-up on a side stream; the generator's graphs share one
-    memory pool. A replay copies the tokens and the suffix into the graph's
-    own buffers; its outputs live in the pool and are overwritten by the
-    next replay of any of the generator's graphs, which the beam only starts
-    after reading them. The MoE counters count what runs eagerly (the
-    prefill), not the replays."""
+    caption tokens against one prefix cache, as a CUDA graph
+    (utils/cuda_graph.py); the generator's graphs share one memory pool. A replay copies the tokens
+    and the suffix into the graph's own buffers; its outputs live in the
+    pool and are overwritten by the next replay of any of the generator's
+    graphs, which the beam only starts after reading them. The MoE counters
+    count what runs eagerly (the prefill), not the replays."""
 
     def __init__(self, gen: KimiVLGenerator, tokens, suffix, prefix):
         self.tokens, self.suffix = tokens.clone(), suffix.clone()
-        side = torch.cuda.Stream(tokens.device)
-        side.wait_stream(torch.cuda.current_stream(tokens.device))
-        with torch.cuda.stream(side):
-            gen._step(self.tokens, self.suffix, prefix)
-        torch.cuda.current_stream(tokens.device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=gen._pool):
-            self.out = gen._step(self.tokens, self.suffix, prefix)
-        gen._pool = self.graph.pool()
+        self.graph = Graph(tokens.device, pool=gen._pool)
+        self.graph.warm_up(lambda: gen._step(self.tokens, self.suffix, prefix))
+        self.graph.capture(lambda: gen._step(self.tokens, self.suffix, prefix))
+        gen._pool = self.graph.pool
 
     def replay(self, tokens, suffix):
         self.tokens.copy_(tokens)
         self.suffix.copy_(suffix)
-        self.graph.replay()
-        return self.out
+        return self.graph.replay()

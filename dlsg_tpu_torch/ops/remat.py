@@ -21,14 +21,13 @@ The generator. Dropout and the penalty draw from an explicit
 `torch.Generator` (ops/linear.py::dropout), and `checkpoint`'s
 `preserve_rng_state` restores only the default generators: a plain
 recompute would draw new masks, and advance the caller's generator a second
-time. So the wrapper takes a snapshot of `rng`'s state before the forward;
-`fn` draws from a generator of its own built from that snapshot, in the
-forward and again in the recompute, which therefore draws the same masks;
-after the forward the caller's `rng` is set to where those draws left it,
-so every later draw is the one it would be without remat. The package draws
-nothing from the default generators. With `module` given, the recompute
-also runs in the training mode that module had in the forward: a step's
-backward may run after its modules went back to eval mode.
+time. So the forward draws from `rng` itself, which ends where one forward
+leaves it, and the recompute, once, from a fork of `rng` taken where the
+forward began (utils/cuda_graph.py::fork, also inside a CUDA graph), which
+draws the same masks again. The package draws nothing from the default
+generators. With `module` given, the recompute also runs in the
+training mode that module had in the forward: a step's backward may run
+after its modules went back to eval mode.
 """
 
 from __future__ import annotations
@@ -46,6 +45,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
     noop_context_fn,
 )
+
+from dlsg_tpu_torch.utils.cuda_graph import fork
 
 POLICIES = ("none", "dots", "full")
 
@@ -108,25 +109,17 @@ def remat(fn: Callable, policy: str, rng: Optional[torch.Generator],
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args, rng=rng)
-        snapshot = None if rng is None else rng.get_state()
+        again = None if rng is None else fork(rng)
         training = None if module is None else module.training
-        end = []
+        runs = []
 
         def run(*inner):
-            local = None
-            if snapshot is not None:
-                local = torch.Generator(device=rng.device)
-                local.set_state(snapshot)
+            local = again if runs else rng  # the recompute, or the forward
+            runs.append(1)
             with _mode(module, training):
-                out = fn(*inner, rng=local)
-            if local is not None and not end:  # the forward, not the recompute
-                end.append(local.get_state())
-            return out
+                return fn(*inner, rng=local)
 
-        out = checkpoint(run, *args, use_reentrant=False, context_fn=context_fn,
-                         preserve_rng_state=False)
-        if end:
-            rng.set_state(end[0])
-        return out
+        return checkpoint(run, *args, use_reentrant=False, context_fn=context_fn,
+                          preserve_rng_state=False)
 
     return wrapped

@@ -18,38 +18,35 @@ run_gun.py:147-234 and run_graph.py:109-134).
   (each substep; args its index) holding `dlsg.gan.penalty`, and
   `dlsg.gan.g_update` (G's losses, lambda, gradient and update).
 
-The GAN step from CUDA graphs. On a card, with no data axis, the step's own
-penalty draws and no remat (`step_graph_engaged`), the step captures itself
-whole as one CUDA graph and replays it once a step: G's forward, the
-`num_D_visual` D substeps (the mixing weights' draw, the grouped real | fake
-pass, the penalty with its double backward, D's gradient and Adam update),
-G's losses, lambda, G's gradient and Adam update. The graph launches the
-kernels that the eager step launches, on the same data, without the host
-dispatching each. Where only G's scan is rematerialized (`d_graph_engaged`),
-the step captures one D substep and replays it in place of the eager
-substeps instead. Either graph reads its inputs from buffers of its own,
-into which each step copies them (the batch and the lambda state; D's, the
-detached G outputs and masks), hands back clones of its outputs (so a
-caller's late read of a step's metrics sees that step's), and follows the
-step's generator: one generator per device for the step function's life
-(`StepRng`), re-seeded each step, so every draw lands where the eager
-step's would. A graph bakes in what its key names (`_step_graph_key`,
-`_d_graph_key`): the inputs' shapes, the Adam settings (learning rates among
-them) and clamps, the teacher-forcing ratio, the modes, the substep count,
-the tensors it updates and the functions it calls. Both share one flow
-(`_KeyedGraph`): the first run of a step function, and any run that would
-make Adam's state, is eager; the next run captures and every later one
-replays; a new key (the trainer's learning-rate milestones or epsilon
-schedule) drops the graph and frees its pool, and the next run captures
-anew. The graphed states' Adam turns `capturable` (train/optim.py), which
-moves its step count to the card. Everything else runs the eager loop;
-the CPU always does. While a trace runs, the counters `gan.steps` and
-`gan.steps_graphed` count the steps and the whole-step replays,
+The GAN step from CUDA graphs. On a card, with no data axis and the step's
+own penalty draws (`step_graph_engaged`), the step runs as one CUDA graph
+(utils/cuda_graph.py), replayed once a step: G's forward, the
+`num_D_visual` D substeps (the mixing weights' draw, the grouped real |
+fake pass, the penalty with its double backward, D's gradient and Adam
+update), G's losses, lambda, G's gradient and Adam update, under either
+remat. The graph launches the kernels that the eager step launches, on the
+same data, without the host dispatching each. It reads the batch and the
+lambda state from buffers of its own, into which each step copies them,
+hands back clones of its outputs (so a caller's late read of a step's
+metrics sees that step's), and follows the step's generator: one generator
+per device for the step function's life (`StepRng`), re-seeded each step,
+so every draw, a remat region's recompute among them, lands where the
+eager step's would. The graph bakes in what its key names
+(`_step_graph_key`): the inputs' shapes, the Adam settings (learning rates
+among them) and clamps, the teacher-forcing ratio, the modes, the substep
+count, the tensors it updates and the functions it calls. A step under a
+key that has no graph yet (the step function's first, or after the
+trainer's learning-rate milestones or epsilon schedule changed the key) runs
+eager, as the graph's warm-up, which also makes Adam's state, and then
+captures the graph, dropping the last one and freeing its pool; every later
+step under that key replays. The graphed states' Adam turns `capturable`
+(train/optim.py), which moves its step count to the card. Everything else
+runs the eager loop; the CPU always does. While a trace runs, the counters
+`gan.steps` and `gan.steps_graphed` count the steps and the replays,
 `gan.d_substeps` and `gan.d_substeps_graphed` the substeps and those a
-graph ran (a step's replay runs `num_D_visual`); a step's replay is the
-span `dlsg.gan.step_replay`, so the phase spans above, `dlsg.gan.penalty`
-and `dlsg.optim.update` then appear only in eager steps or substeps and at
-a capture.
+replay ran (`num_D_visual` a replay); a replay is the span
+`dlsg.gan.step_replay`, so the phase spans above, `dlsg.gan.penalty` and
+`dlsg.optim.update` then appear only in eager steps and at a capture.
 
 Gradients are taken with `torch.autograd.grad` against each state's own
 parameter list, so the generator head never writes D's gradients and the D
@@ -104,6 +101,7 @@ from dlsg_tpu_torch.parallel.dist import (
 )
 from dlsg_tpu_torch.train.gan_lambda import LambdaState, lambda_update
 from dlsg_tpu_torch.train.optim import TrainState
+from dlsg_tpu_torch.utils import cuda_graph
 from dlsg_tpu_torch.utils.profiler import count, span
 
 Metrics = Dict[str, torch.Tensor]
@@ -213,21 +211,11 @@ def make_legacy_ce_train_step(model: nn.Module, cfg: DLSGConfig):
                     lambda frames, captions, epsilon, rng: model(frames, captions, epsilon, rng=rng))
 
 
-def d_graph_engaged(device, cfg: DLSGConfig, eps_gp: Optional[torch.Tensor]) -> bool:
-    """Whether a GAN step replays D's substeps from a CUDA graph (module
-    doc): on a card, with no data axis (its all-reduce would sit inside the
-    capture), the step's own penalty draws (`eps_gp` None) and no remat of
-    D's pass (remat moves the generator's state on the host,
-    ops/remat.py)."""
-    return (torch.device(device).type == "cuda" and not data_axis_active()
-            and eps_gp is None and cfg.disc_remat == "none")
-
-
 def step_graph_engaged(device, cfg: DLSGConfig, eps_gp: Optional[torch.Tensor]) -> bool:
-    """Whether a GAN step replays whole from one CUDA graph (module doc):
-    where D's graph would engage and G's scan is not rematerialized either
-    (`decoder_remat`, for the same reason as D's)."""
-    return d_graph_engaged(device, cfg, eps_gp) and cfg.decoder_remat == "none"
+    """Whether a GAN step replays from a CUDA graph (module doc): on a card,
+    with no data axis (its all-reduce would sit inside the capture) and the
+    step's own penalty draws (`eps_gp` None)."""
+    return torch.device(device).type == "cuda" and not data_axis_active() and eps_gp is None
 
 
 def _state_key(state: TrainState) -> tuple:
@@ -243,66 +231,22 @@ def _state_key(state: TrainState) -> tuple:
     )
 
 
-def _d_graph_key(state: TrainState, inputs: Sequence[torch.Tensor], rng: torch.Generator,
-                 num_d: int) -> tuple:
-    """What a captured D substep bakes in: its inputs' shapes and layouts,
-    D's state (`_state_key`), the modes, the substep count, the generator it
-    follows, and the functions it calls, as the step finds them now."""
-    return (
-        tuple((t.shape, t.stride(), t.dtype, t.device) for t in inputs),
-        _state_key(state), state.module.training, num_d, rng,
-        batch_share, gradient_penalty, type(state).apply_gradients, _grads,
-    )
-
-
 def _step_graph_key(gen_state: TrainState, disc_state: TrainState,
                     inputs: Sequence[torch.Tensor], rng: torch.Generator, num_d: int,
                     epsilon: float, single_fwd: bool) -> tuple:
-    """What a captured GAN step bakes in: D's substep key over the step's
-    inputs (the batch and the lambda state), and G's state and mode, the
-    teacher-forcing ratio, the forward's sharing and the G phase's
-    functions."""
-    return _d_graph_key(disc_state, inputs, rng, num_d) + (
-        _state_key(gen_state), gen_state.module.training, float(epsilon), single_fwd,
+    """What a captured GAN step bakes in: its inputs' shapes and layouts
+    (the batch and the lambda state), both states (`_state_key`) and modes,
+    the generator it follows, the substep count, the teacher-forcing ratio,
+    the forward's sharing, and the functions it calls, as the step finds
+    them now."""
+    return (
+        tuple((t.shape, t.stride(), t.dtype, t.device) for t in inputs),
+        _state_key(gen_state), _state_key(disc_state),
+        gen_state.module.training, disc_state.module.training,
+        rng, num_d, float(epsilon), single_fwd,
+        batch_share, gradient_penalty, type(disc_state).apply_gradients, _grads,
         masked_cross_entropy, wgan_g_loss, lambda_update,
     )
-
-
-def _capture(fn: Callable[[], Any], rng: torch.Generator) -> Callable[[], Any]:
-    """`fn` captured on the current stream (a side stream: the default one
-    cannot capture) as a CUDA graph that follows `rng`'s draws; returns its
-    replay, which returns fn's outputs: the graph's memory, which each
-    replay rewrites. The capture runs nothing. Unlike `torch.cuda.graph`,
-    it leaves the allocators' caches as they are: emptying them costs
-    set-up time and frees nothing that the graph's own pool could use."""
-    graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(rng)
-    # thread_local: the feed's thread may wait on its own copies meanwhile
-    graph.capture_begin(capture_error_mode="thread_local")
-    try:
-        out = fn()
-    finally:
-        graph.capture_end()
-
-    def replay():
-        graph.replay()
-        return out
-
-    return replay
-
-
-@contextlib.contextmanager
-def _on(stream: Optional[torch.cuda.Stream]):
-    """Work on `stream` after the current stream's, the current stream
-    waiting for it after; without a stream (the CPU), where it is."""
-    if stream is None:
-        yield
-        return
-    current = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        yield
-    current.wait_stream(stream)
 
 
 def _cloned(out):
@@ -315,61 +259,37 @@ def _cloned(out):
 
 
 class _KeyedGraph:
-    """A part of the GAN step as a CUDA graph made under a key (module
-    doc): run eager while it warms up (its first run, and any run while a
-    state it updates has no Adam state: the first update makes it), then
-    captured, then replayed while the key holds; a new key drops the graph
-    and gives its pool back to the card, and the next run captures it
-    again."""
+    """The GAN step as a CUDA graph made under a key (module doc): a step
+    under a new key runs eager as the graph's warm-up and then captures it,
+    dropping the last graph and giving its pool back to the card; a step
+    under the same key replays it."""
 
-    def __init__(self, replay_span: Optional[str] = None) -> None:
-        self.replay_span = replay_span  # the span around each replay, if any
+    def __init__(self) -> None:
         self.key: Optional[tuple] = None  # what the graph was made under
-        self.warm = False
-        self.replay: Optional[Callable[[], Any]] = None
+        self.graph: Optional[cuda_graph.Graph] = None
         self.inputs: Tuple[torch.Tensor, ...] = ()  # the graph's own input buffers
-        # the card's stream of the warm-ups and captures: a capture on a
-        # stream that has run the work before maps and sets up less
-        self.stream: Optional[torch.cuda.Stream] = None
-
-    def load(self, key: tuple, inputs: Sequence[torch.Tensor]) -> None:
-        """A step's start: under the same key the graph's buffers take this
-        step's inputs; under another the graph is dropped."""
-        if key != self.key:
-            captured = self.replay is not None
-            self.key, self.replay, self.inputs = key, None, ()
-            if captured:
-                # a dropped graph's pool goes back to the card only here:
-                # the allocator never frees it inside the next capture
-                torch.cuda.empty_cache()
-        elif self.replay is not None:
-            for buf, t in zip(self.inputs, inputs):
-                buf.copy_(t)
 
     def run(self, fn: Callable[..., Any], inputs: Sequence[torch.Tensor], rng: torch.Generator,
-            key_fn: Callable[[], tuple], updates: Sequence[Tuple[TrainState, int]]
-            ) -> Tuple[Any, bool]:
-        """`fn(*inputs)` (tensors, or a tuple or dict of them), eager as the
-        warm-up, else (captured first) the graph's replay; each (state, n) of
-        `updates` counts the n Adam updates that `fn` makes of it. Returns
-        (fn's outputs, whether the graph ran them)."""
-        if self.stream is None and inputs[0].device.type == "cuda":
-            self.stream = torch.cuda.Stream(inputs[0].device)
-        if not self.warm or any(not s.optimizer.state for s, _ in updates):
-            with _on(self.stream):
-                out = fn(*inputs)
-            self.key, self.warm = key_fn(), True  # Adam's state now exists
-            return out, False
-        steps = [s.step for s, _ in updates]  # the capture updates nothing, a replay runs no Python
-        if self.replay is None:
-            self.inputs = tuple(t.clone() for t in inputs)
-            with _on(self.stream):
-                self.replay = _capture(lambda: fn(*self.inputs), rng)
-        with span(self.replay_span) if self.replay_span else contextlib.nullcontext():
-            out = self.replay()
-        for (state, n), step in zip(updates, steps):
-            state.step = step + n
-        return _cloned(out), True
+            key_fn: Callable[[], tuple]) -> Tuple[Any, bool]:
+        """`fn(*inputs)` (tensors, or a tuple or dict of them) as the class
+        doc says: (fn's outputs, whether the graph ran them)."""
+        if key_fn() == self.key:
+            for buf, t in zip(self.inputs, inputs):
+                buf.copy_(t)
+            with span("gan.step_replay"):
+                return _cloned(self.graph.replay()), True
+        if self.graph is not None:
+            self.graph = None
+            # a dropped graph's pool goes back to the card only here: the
+            # allocator never frees it inside the next capture
+            torch.cuda.empty_cache()
+        graph = cuda_graph.Graph(inputs[0].device, rng)
+        out = graph.warm_up(lambda: fn(*inputs))
+        self.key = key_fn()  # after the warm-up: Adam's state exists now
+        self.inputs = tuple(t.clone() for t in inputs)
+        graph.capture(lambda: fn(*self.inputs))
+        self.graph = graph
+        return out, False
 
 
 def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGConfig):
@@ -393,14 +313,12 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
     num_d = cfg.num_D_visual
     single_fwd = cfg.gan_single_forward
     step_rng = StepRng()
-    d_graph, step_graph = _KeyedGraph(), _KeyedGraph("gan.step_replay")
+    step_graph = _KeyedGraph()
 
     def work(gen_state: TrainState, disc_state: TrainState, lstate: LambdaState,
              frames, regions, captions, lengths, epsilon: float, rng: torch.Generator,
-             run_substep: Callable[[int, Callable[..., torch.Tensor], tuple], torch.Tensor]
-             ) -> Tuple[LambdaState, Metrics]:
-        """The step on the batch's device tensors, D's substep i run by
-        `run_substep(i, d_substep, d_inputs)`: (lstate, metrics)."""
+             eps_gp: Optional[torch.Tensor] = None) -> Tuple[LambdaState, Metrics]:
+        """The step on the batch's device tensors: (lstate, metrics)."""
         dev = frames.device
         _, att_mask = make_masks(captions)
         r_caption = to_onehot(captions, vocab_size)
@@ -414,37 +332,31 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
             torch.cat([t, t], dim=0) for t in (obj, mot, att_mask, alpha)
         )
         real_fake = torch.cat([r_caption, f_caption], dim=0)
-        d_inputs = (r_caption, f_caption, obj, mot, att_mask, alpha,
-                    obj2, mot2, att2, alpha2, real_fake)
 
-        def d_substep(r_caption, f_caption, obj, mot, att_mask, alpha,
-                      obj2, mot2, att2, alpha2, real_fake, eps=None):
-            """One WGAN-GP substep of D: [loss_d, r - f, gp]."""
+        def d_fn(caps):
+            return disc_model(caps, obj, mot, att_mask, alpha, rng=rng)
 
-            def d_fn(caps):
-                return disc_model(caps, obj, mot, att_mask, alpha, rng=rng)
-
-            # real | fake in one grouped pass, under cfg.disc_remat (the
-            # penalty's pass at B is never rematerialized, as in JAX)
-            d_grouped = remat(
-                lambda caps, rng: disc_model(caps, obj2, mot2, att2, alpha2, groups=2, rng=rng),
-                cfg.disc_remat, rng, module=disc_model,
-            )
-            if eps is None:
-                eps = rank_block_rand((B, 1, 1), rng, dev)
-            eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
-            scores = d_grouped(real_fake)
-            r_loss, f_loss = batch_share(scores[:B]), batch_share(scores[B:])
-            with span("gan.penalty"):
-                gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
-            loss_d = f_loss - r_loss + GP_WEIGHT * gp
-            disc_state.apply_gradients(_grads(loss_d, disc_state.params))
-            return torch.stack([loss_d, r_loss - f_loss, gp]).detach()
-
+        # real | fake in one grouped pass, under cfg.disc_remat (the
+        # penalty's pass at B is never rematerialized, as in JAX)
+        d_grouped = remat(
+            lambda caps, rng: disc_model(caps, obj2, mot2, att2, alpha2, groups=2, rng=rng),
+            cfg.disc_remat, rng, module=disc_model,
+        )
         d_stats = []
         for i in range(num_d):
             with span("gan.d_substep", i):
-                d_stats.append(run_substep(i, d_substep, d_inputs))
+                if eps_gp is None:
+                    eps = rank_block_rand((B, 1, 1), rng, dev)
+                else:
+                    eps = torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev)
+                eps = eps.reshape(B, 1, 1).to(r_caption.dtype)
+                scores = d_grouped(real_fake)
+                r_loss, f_loss = batch_share(scores[:B]), batch_share(scores[B:])
+                with span("gan.penalty"):
+                    gp = gradient_penalty(d_fn, r_caption, f_caption, eps)
+                loss_d = f_loss - r_loss + GP_WEIGHT * gp
+                disc_state.apply_gradients(_grads(loss_d, disc_state.params))
+                d_stats.append(torch.stack([loss_d, r_loss - f_loss, gp]).detach())
 
         # ---- G phase (run_gun.py:183,215-218): D scores the raw logits;
         # proposals and alpha stay detached
@@ -483,9 +395,6 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
         dev = _device(gen_model)
         inputs = _batch(batch, dev)
         rng = step_rng(key, gen_state.step, dev)
-        count("gan.steps")
-        for name in ("gan.steps_graphed", "gan.d_substeps_graphed"):
-            count(name, 0)  # the shares read 0 where no graph runs
 
         with _training(gen_model, disc_model):
             if step_graph_engaged(dev, cfg, eps_gp):
@@ -496,53 +405,25 @@ def make_gan_train_step(gen_model: nn.Module, disc_model: nn.Module, cfg: DLSGCo
                 step_inputs = (*inputs, *(lstate[k] for k in names))
 
                 def whole(frames, regions, captions, lengths, *lvalues):
-                    # its substeps are counted around the graph
                     return work(gen_state, disc_state, dict(zip(names, lvalues)),
-                                frames, regions, captions, lengths, epsilon, rng,
-                                lambda i, d_substep, d_inputs: d_substep(*d_inputs))
+                                frames, regions, captions, lengths, epsilon, rng)
 
                 def key_fn():
                     return _step_graph_key(gen_state, disc_state, step_inputs, rng, num_d,
                                            epsilon, single_fwd)
 
-                step_graph.load(key_fn(), step_inputs)
-                (lstate, metrics), replayed = step_graph.run(
-                    whole, step_inputs, rng, key_fn, ((gen_state, 1), (disc_state, num_d)))
-                count("gan.d_substeps", num_d)
-                if replayed:
-                    count("gan.steps_graphed")
-                    count("gan.d_substeps_graphed", num_d)
-
-            elif d_graph_engaged(dev, cfg, eps_gp):
-                if not disc_state.capturable:
-                    disc_state.set_capturable(True)
-
-                def graphed_substep(i, d_substep, d_inputs):
-                    def key_fn():
-                        return _d_graph_key(disc_state, d_inputs, rng, num_d)
-
-                    if i == 0:
-                        d_graph.load(key_fn(), d_inputs)
-                    count("gan.d_substeps")
-                    stats, replayed = d_graph.run(d_substep, d_inputs, rng, key_fn,
-                                                  ((disc_state, 1),))
-                    if replayed:
-                        count("gan.d_substeps_graphed")
-                    return stats
-
-                lstate, metrics = work(gen_state, disc_state, lstate, *inputs, epsilon, rng,
-                                       graphed_substep)
-
+                # the Adam step counts: a replay runs no Python, a capture updates nothing
+                steps = gen_state.step + 1, disc_state.step + num_d
+                (lstate, metrics), replayed = step_graph.run(whole, step_inputs, rng, key_fn)
+                gen_state.step, disc_state.step = steps
             else:
-                def eager_substep(i, d_substep, d_inputs):
-                    count("gan.d_substeps")
-                    eps = (None if eps_gp is None else
-                           torch.as_tensor(eps_gp[i], dtype=torch.float32, device=dev))
-                    return d_substep(*d_inputs, eps=eps)
+                (lstate, metrics), replayed = work(gen_state, disc_state, lstate, *inputs,
+                                                   epsilon, rng, eps_gp), False
 
-                lstate, metrics = work(gen_state, disc_state, lstate, *inputs, epsilon, rng,
-                                       eager_substep)
-
+        count("gan.steps")
+        count("gan.d_substeps", num_d)
+        count("gan.steps_graphed", int(replayed))  # the shares read 0 where no graph runs
+        count("gan.d_substeps_graphed", num_d * replayed)
         return gen_state, disc_state, lstate, metrics
 
     return step

@@ -1,32 +1,32 @@
-"""The GAN step replayed from CUDA graphs (train/steps.py): the whole step
-from one graph, or D's WGAN-GP substep alone where G's scan is
-rematerialized.
+"""The GAN step replayed from one CUDA graph (train/steps.py, through
+utils/cuda_graph.py), under every remat policy.
 
-On the CPU: the rule that decides which graph engages, the keys that say
-when a graph is captured again, the step's generator (one object re-seeded
-each step draws what a fresh one would), the counters that
-`step_graph_share.train` and `d_graph_share.train` read, and the graphed
-flows themselves with the capture replaced by a function that runs the
-graphed part again into the same output tensors (warm-up, capture, replays,
-captures again after a change of learning rate) against the eager loop,
-bitwise; a new key gives the dropped graph's pool back; a step's metrics
-and lambda state outlive the next replay.
+On the CPU: the rule that decides where the graph engages, the key that
+says when the graph is captured again, the step's generator (one object
+re-seeded each step draws what a fresh one would), the counters that
+`step_graph_share.train` and `d_graph_share.train` read, the graphed flow
+itself with the capture replaced by a function that runs the graphed part
+again into the same output tensors (warm-up and capture, replays, both
+again after a change of learning rate) against the eager loop, bitwise; a
+new key gives the dropped graph's pool back; a step's metrics and lambda
+state outlive the next replay; and a graph's forks, with the card's parts
+stubbed.
 
 On the card (marker `cuda`; skipped without one; no JAX, so run without the
 suite's conftest):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_gan_graph.py
 
-graphed GAN steps (the whole step, and D's substep alone, also under
-`decoder_remat`) against eager ones with the same capturable Adam, bitwise,
-at tiny widths and at the benchmark's MSR-VTT widths over three steps with a
-change of learning rate;
-the generator's draws inside and around a graph; re-keyed graphs giving
-their pools back; a checkpoint of both capturable Adam states, then a
-graphed step; and the benchmark's planted D faults, caught with the step
-graph engaged.
+graphed GAN steps against eager ones with the same capturable Adam,
+bitwise, at tiny widths and at the benchmark's MSR-VTT widths over four
+steps with a change of learning rate, without remat and under
+`decoder_remat` and `disc_remat`; the generator's draws inside and around a
+graph; re-keyed graphs giving their pools back; a checkpoint of both
+capturable Adam states, then a graphed step; and the benchmark's planted D
+faults, caught with the step graph engaged.
 """
 
+import contextlib
 from dataclasses import replace
 from types import SimpleNamespace
 
@@ -45,14 +45,12 @@ from dlsg_tpu_torch.train.gan_lambda import init_lambda_state
 from dlsg_tpu_torch.train.optim import TrainState, make_optimizer
 from dlsg_tpu_torch.train.steps import (
     StepRng,
-    _d_graph_key,
     _step_graph_key,
-    d_graph_engaged,
     make_gan_train_step,
     step_generator,
     step_graph_engaged,
 )
-from dlsg_tpu_torch.utils import profiler
+from dlsg_tpu_torch.utils import cuda_graph, profiler
 from portbench import control, harness
 from portbench.tests.tiny import tiny_run
 
@@ -165,15 +163,18 @@ def _copy_into(dst, src):
 
 
 def _counting_captures(monkeypatch, fake=False):
-    """Wrap `steps._capture` to count captures; with `fake`, the capture
-    is a function that runs the graphed part again at each "replay" and
-    writes its outputs into the first replay's tensors (the CPU's stand-in:
-    a capture runs nothing, each replay does the work into the graph's own
-    memory)."""
+    """Wrap `cuda_graph.Graph.capture` to count captures; with `fake`, the
+    capture makes the graph's replay a function that runs the graphed part
+    again and writes its outputs into the first replay's tensors (the CPU's
+    stand-in: a capture runs nothing, each replay does the work into the
+    graph's own memory)."""
     made = []
-    real = steps._capture
+    real = cuda_graph.Graph.capture
 
-    def fake_capture(fn):
+    def capture(self, fn):
+        made.append(len(made))  # not the graph: a list that held it would keep its pool
+        if not fake:
+            return real(self, fn)
         held = []
 
         def replay():
@@ -184,23 +185,16 @@ def _counting_captures(monkeypatch, fake=False):
                 held.append(out)
             return held[0]
 
-        return replay
+        self.replay = replay
 
-    def capture(fn, rng):
-        made.append(rng)
-        return fake_capture(fn) if fake else real(fn, rng)
-
-    monkeypatch.setattr(steps, "_capture", capture)
+    monkeypatch.setattr(cuda_graph.Graph, "capture", capture)
     return made
 
 
-def _graphed_on_the_cpu(monkeypatch, graph):
-    """The graphed flows engaged on the CPU, `graph` "step" (the whole
-    step) or "d" (D's substep alone), Adam left plain (the CPU's cannot be
-    capturable); returns the fake captures made."""
-    monkeypatch.setattr(steps, "d_graph_engaged", lambda dev, cfg, eps_gp: eps_gp is None)
-    if graph == "d":
-        monkeypatch.setattr(steps, "step_graph_engaged", lambda dev, cfg, eps_gp: False)
+def _graphed_on_the_cpu(monkeypatch):
+    """The graphed flow engaged on the CPU, Adam left plain (the CPU's
+    cannot be capturable); returns the fake captures made."""
+    monkeypatch.setattr(steps, "step_graph_engaged", lambda dev, cfg, eps_gp: eps_gp is None)
     monkeypatch.setattr(optim.TrainState, "set_capturable", lambda self, on: self)
     return _counting_captures(monkeypatch, fake=True)
 
@@ -212,71 +206,48 @@ def _graphed_on_the_cpu(monkeypatch, graph):
     ("cpu", {}, None, False, "eager"),
     ("cuda", {}, None, True, "eager"),
     ("cuda", {}, torch.zeros(5, 4), False, "eager"),
-    ("cuda", {"disc_remat": "dots"}, None, False, "eager"),
-    ("cuda", {"disc_remat": "full"}, None, False, "eager"),
+    ("cuda", {"disc_remat": "dots"}, None, False, "step"),
+    ("cuda", {"disc_remat": "full"}, None, False, "step"),
     ("cuda", {}, None, False, "step"),
-    ("cuda", {"decoder_remat": "dots"}, None, False, "d"),
-    ("cuda", {"decoder_remat": "full"}, None, False, "d"),
-    ("cuda", {"decoder_remat": "full", "disc_remat": "dots"}, None, False, "eager"),
+    ("cuda", {"decoder_remat": "dots"}, None, False, "step"),
+    ("cuda", {"decoder_remat": "full"}, None, False, "step"),
+    ("cuda", {"decoder_remat": "full", "disc_remat": "dots"}, None, False, "step"),
     ("cpu", {"decoder_remat": "dots"}, None, False, "eager"),
 ], ids=["cpu", "data-axis", "eps_gp", "remat-dots", "remat-full", "card", "decoder-remat-dots",
         "decoder-remat-full", "both-remats", "cpu-decoder-remat"])
 def test_where_the_graph_engages(monkeypatch, device, fields, eps_gp, data_axis, engaged):
-    """The whole step's graph only on a card, with no data axis, the step's
-    own penalty draws and no remat; D's substep graph alone where only G's
-    scan is rematerialized; everything else runs the eager loop."""
+    """The whole step's graph on a card, with no data axis and the step's
+    own penalty draws, under every remat policy; everything else runs the
+    eager loop."""
     monkeypatch.setattr(steps, "data_axis_active", lambda: data_axis)
     cfg = replace(tiny_test_config(), **fields)
-    dev = torch.device(device)
-    assert step_graph_engaged(dev, cfg, eps_gp) is (engaged == "step")
-    assert d_graph_engaged(dev, cfg, eps_gp) is (engaged in ("step", "d"))
+    assert step_graph_engaged(torch.device(device), cfg, eps_gp) is (engaged == "step")
 
 
-def test_the_graph_key_follows_what_the_graph_bakes_in(monkeypatch):
-    """A learning rate, a batch shape, a clamp or a function planted in the
-    step changes the key; another batch of the same shape keeps it."""
-    cfg = tiny_test_config()
-    disc = DiscV2(cfg, V, device="cpu")
-    state = TrainState.create(disc, make_optimizer(1e-3))
-    rng = StepRng()(KEY, 0, "cpu")
-
-    def inputs(n, fill):
-        return (torch.full((n, cfg.max_words, V), fill), torch.full((n, cfg.max_words, 8), fill))
-
-    key = _d_graph_key(state, inputs(4, 0.0), rng, 5)
-    assert _d_graph_key(state, inputs(4, 1.0), rng, 5) == key
-    assert _d_graph_key(state, inputs(8, 0.0), rng, 5) != key
-    assert _d_graph_key(state, inputs(4, 0.0), rng, 4) != key
-    state.set_learning_rate(5e-4)
-    assert _d_graph_key(state, inputs(4, 0.0), rng, 5) != key
-    state.set_learning_rate(1e-3)
-    assert _d_graph_key(state, inputs(4, 0.0), rng, 5) == key
-    clamped = TrainState(state.module, state.optimizer, replace(state.config, grad_clip=1.0),
-                         state.names, state.params)
-    assert _d_graph_key(clamped, inputs(4, 0.0), rng, 5) != key
-    monkeypatch.setattr(steps, "batch_share", lambda x: x.sum())
-    assert _d_graph_key(state, inputs(4, 0.0), rng, 5) != key
-
-
-@pytest.mark.parametrize("change", ["epsilon", "g_lr", "d_lr", "g_clamp", "single_forward",
-                                    "num_d", "lambda_window", "batch", "g_adam_state",
-                                    "planted_g_loss"])
+@pytest.mark.parametrize("change", ["epsilon", "g_lr", "d_lr", "g_clamp", "d_clamp",
+                                    "single_forward", "num_d", "lambda_window", "batch",
+                                    "g_adam_state", "planted_g_loss", "planted_d_share"])
 def test_the_step_graph_key_follows_what_the_step_bakes_in(monkeypatch, change):
     """Each thing that the whole step's graph bakes in changes its key: the
-    teacher-forcing ratio, either learning rate, G's clamp, the forward's
-    sharing, the substep count, the lambda state's shape, the batch's shape,
-    G's Adam tensors, a function planted in the step. Another batch and
-    lambda state of the same shapes keep it."""
+    teacher-forcing ratio, either learning rate, either clamp, the
+    forward's sharing, the substep count, the lambda state's shape, the
+    batch's shape, G's Adam tensors, a function planted in the step (G's
+    loss, or D's batch share, as the benchmark plants its D faults).
+    Another batch and lambda state of the same shapes keep it."""
     cfg = tiny_test_config()
     gs = TrainState.create(CapGnnModel(cfg, V, device="cpu"), make_optimizer(1e-3, cfg.grad_clip))
     ds = TrainState.create(DiscV2(cfg, V, device="cpu"), make_optimizer(1e-3))
     rng = StepRng()(KEY, 0, "cpu")
 
-    def key(gs=gs, n=4, fill=0, window=200, epsilon=0.9, single=True, num_d=5):
+    def key(gs=gs, ds=ds, n=4, fill=0, window=200, epsilon=0.9, single=True, num_d=5):
         lam = init_lambda_state(0.01 + fill, window=window, device="cpu")
         inputs = (torch.full((n, cfg.max_frames, cfg.feature_size), float(fill)),
                   torch.full((n, cfg.max_words), fill, dtype=torch.int64), *lam.values())
         return _step_graph_key(gs, ds, inputs, rng, num_d, epsilon, single)
+
+    def clamped(st):
+        return TrainState(st.module, st.optimizer, replace(st.config, grad_clip=1.0),
+                          st.names, st.params)
 
     base = key()
     assert key(fill=1) == base
@@ -284,8 +255,8 @@ def test_the_step_graph_key_follows_what_the_step_bakes_in(monkeypatch, change):
         "epsilon": lambda: key(epsilon=0.8),
         "g_lr": lambda: key(gs=gs.set_learning_rate(5e-4)),
         "d_lr": lambda: (ds.set_learning_rate(5e-4), key())[1],
-        "g_clamp": lambda: key(gs=TrainState(gs.module, gs.optimizer,
-                                             replace(gs.config, grad_clip=1.0), gs.names, gs.params)),
+        "g_clamp": lambda: key(gs=clamped(gs)),
+        "d_clamp": lambda: key(ds=clamped(ds)),
         "single_forward": lambda: key(single=False),
         "num_d": lambda: key(num_d=4),
         "lambda_window": lambda: key(window=100),
@@ -293,6 +264,8 @@ def test_the_step_graph_key_follows_what_the_step_bakes_in(monkeypatch, change):
         "g_adam_state": lambda: key(gs=gs.apply_gradients([torch.zeros_like(p) for p in gs.params])),
         "planted_g_loss": lambda: (monkeypatch.setattr(steps, "wgan_g_loss", lambda x: x.sum()),
                                    key())[1],
+        "planted_d_share": lambda: (monkeypatch.setattr(steps, "batch_share", lambda x: x.sum()),
+                                    key())[1],
     }[change]()
     assert changed != base
 
@@ -413,27 +386,22 @@ def test_step_graph_share_is_the_benchmark_entry_over_the_two_counters(graphed, 
     assert value == (None if share is None else pytest.approx(share))
 
 
-@pytest.mark.parametrize("graph,single_forward,captures,steps_graphed,d_graphed", [
-    ("step", True, 2, 2, 6),
-    ("step", False, 2, 2, 6),
-    ("d", True, 2, 0, 8),
-], ids=["step", "step-two-forwards", "d-substep"])
-def test_the_graphed_flow_equals_the_eager_loop_on_the_cpu(
-        monkeypatch, graph, single_forward, captures, steps_graphed, d_graphed):
+@pytest.mark.parametrize("fields", [
+    {}, {"gan_single_forward": False}, {"decoder_remat": "dots"}, {"disc_remat": "full"},
+], ids=["step", "step-two-forwards", "step-decoder-remat-dots", "step-disc-remat-full"])
+def test_the_graphed_flow_equals_the_eager_loop_on_the_cpu(monkeypatch, fields):
     """The graphed flow with the capture replaced by the graphed part run
-    again at each replay: three steps, the learning rates halved before the
-    third, equal the eager loop bitwise. The whole step: the first step
-    eager (it makes both Adam states), a capture in the second and again in
-    the third, after the change; each replay counts one graphed step and
-    `num_D_visual` graphed substeps. D's substep alone: the first substep
-    eager, a capture by the second and again by the third step's first;
-    every other substep a replay."""
-    cfg = tiny_test_config(num_D_visual=3, gan_single_forward=single_forward)
+    again at each replay: four steps, the learning rates halved before the
+    third, equal the eager loop bitwise, without remat and under either.
+    The first and the third step (a new key) run eager and capture; the
+    second and the fourth replay, each counting one graphed step and
+    `num_D_visual` graphed substeps."""
+    cfg = replace(tiny_test_config(num_D_visual=3), **fields)
     world = _World(cfg, V, "cpu")
-    batches = [_batch(cfg, 4, V, seed=s) for s in (1, 2, 3)]
+    batches = [_batch(cfg, 4, V, seed=s) for s in (1, 2, 3, 4)]
     want = _run_steps(world, batches)
 
-    made = _graphed_on_the_cpu(monkeypatch, graph)
+    made = _graphed_on_the_cpu(monkeypatch)
     prof = profile(activities=[ProfilerActivity.CPU])
     prof.start()
     try:
@@ -441,21 +409,21 @@ def test_the_graphed_flow_equals_the_eager_loop_on_the_cpu(
     finally:
         prof.stop()
     _assert_bitwise(got, want)
-    assert len(made) == captures
+    assert len(made) == 2
     c = profiler.counters()
-    assert (c["gan.steps"], c["gan.steps_graphed"]) == (3, steps_graphed)
-    assert (c["gan.d_substeps"], c["gan.d_substeps_graphed"]) == (9, d_graphed)
+    assert (c["gan.steps"], c["gan.steps_graphed"]) == (4, 2)
+    assert (c["gan.d_substeps"], c["gan.d_substeps_graphed"]) == (12, 6)
 
 
-@pytest.mark.parametrize("graph", ["step", "d"], ids=["step", "d-substep"])
-def test_a_new_key_gives_the_dropped_graphs_pool_back(monkeypatch, graph):
+@pytest.mark.parametrize("fields", [{}, {"decoder_remat": "full"}], ids=["step", "decoder-remat"])
+def test_a_new_key_gives_the_dropped_graphs_pool_back(monkeypatch, fields):
     """The allocator frees a dropped graph's pool only when asked, and never
     inside the next capture: a new key after a capture asks once, before
     the capture that follows; the first capture, with nothing to drop,
     does not ask."""
-    cfg = tiny_test_config(num_D_visual=2)
+    cfg = tiny_test_config(num_D_visual=2, **fields)
     world = _World(cfg, V, "cpu")
-    made = _graphed_on_the_cpu(monkeypatch, graph)
+    made = _graphed_on_the_cpu(monkeypatch)
     emptied = []
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: emptied.append(len(made)))
     _run_steps(world, [_batch(cfg, 4, V, seed=s) for s in (1, 2, 3)])
@@ -469,7 +437,7 @@ def test_a_steps_metrics_and_lambda_state_outlive_the_next_replay(monkeypatch):
     outputs again."""
     cfg = tiny_test_config(num_D_visual=2)
     world = _World(cfg, V, "cpu")
-    made = _graphed_on_the_cpu(monkeypatch, "step")
+    made = _graphed_on_the_cpu(monkeypatch)
     gs, ds, lam = world.states()
     fn = make_gan_train_step(world.gen, world.disc, cfg)
     handed, kept = [], []
@@ -485,6 +453,108 @@ def test_a_steps_metrics_and_lambda_state_outlive_the_next_replay(monkeypatch):
     # the replays' outputs differ, so a shared tensor would have shown
     assert kept[2][1]["count"] != kept[3][1]["count"]
     assert not torch.equal(kept[2][0]["cap_loss"], kept[3][0]["cap_loss"])
+
+
+class _HostGen:
+    """The host side of a card generator as utils/cuda_graph.py reads and
+    sets it: a seed and an offset, which a draw of n moves on by n."""
+
+    def __init__(self, seed=0, offset=0):
+        self.seed, self.offset = seed, offset
+
+    def draw(self, n):
+        at = (self.seed, self.offset)
+        self.offset += n
+        return at
+
+    def get_offset(self):
+        return self.offset
+
+    def set_offset(self, offset):
+        self.offset = offset
+
+    def initial_seed(self):
+        return self.seed
+
+    def manual_seed(self, seed):
+        self.seed, self.offset = seed, 0
+        return self
+
+    def clone_state(self):
+        return _HostGen(self.seed, self.offset)
+
+
+class _StubGraph:
+    """torch.cuda.CUDAGraph without a card: what was registered, captured
+    in which mode, and how often it replayed."""
+
+    def __init__(self):
+        self.registered, self.modes, self.replays = [], [], 0
+
+    def register_generator_state(self, gen):
+        self.registered.append(gen)
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self.modes.append(capture_error_mode)
+
+    def capture_end(self):
+        pass
+
+    def pool(self):
+        return "the pool"
+
+    def replay(self):
+        self.replays += 1
+
+
+def test_a_graphs_forks_follow_its_generator_with_the_card_stubbed(monkeypatch):
+    """utils/cuda_graph.py's fork bookkeeping: the warm-up's forks stand
+    where the generator stood and are noted with how far it had drawn
+    since the warm-up began; the capture registers the generator and the
+    forks and hands the same forks out in the same order; before each
+    replay every fork is set to the generator's seed and position plus that
+    distance. A capture that forks otherwise than its warm-up, and a fork of
+    a generator the graph does not follow, raise; outside a graph a fork is
+    a clone."""
+    monkeypatch.setattr(cuda_graph, "_on", lambda stream: contextlib.nullcontext())
+    monkeypatch.setitem(cuda_graph._streams, torch.device("cuda"), "the card's side stream")
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
+    gen = _HostGen(seed=5, offset=100)
+    handed, draws = [], []
+
+    def region(extra_fork=False):
+        gen.draw(4)
+        first = cuda_graph.fork(gen)
+        draws.append((gen.draw(8), first.draw(8)))  # the forward's masks, the recompute's
+        second = cuda_graph.fork(gen)
+        handed.append((first, second))
+        if extra_fork:
+            cuda_graph.fork(gen)
+        return "outputs"
+
+    graph = cuda_graph.Graph("cuda", gen)
+    assert graph.warm_up(region) == "outputs"
+    assert draws == [((5, 104), (5, 104))]
+    assert graph.forks == list(zip(handed[0], (4, 12)))
+    gen.manual_seed(6)
+    graph.capture(region)
+    assert graph.graph.registered == [gen, *handed[0]]
+    assert graph.graph.modes == ["thread_local"] and graph.pool == "the pool"
+    assert handed[1][0] is handed[0][0] and handed[1][1] is handed[0][1]
+    for seed, offset in ((7, 0), (8, 40)):
+        gen.manual_seed(seed).set_offset(offset)
+        assert graph.replay() == "outputs"
+        assert [(f.seed, f.offset) for f in handed[0]] == [(seed, offset + 4), (seed, offset + 12)]
+    assert graph.graph.replays == 2
+
+    with pytest.raises(RuntimeError, match="forks otherwise"):
+        graph.capture(lambda: region(extra_fork=True))
+    with pytest.raises(RuntimeError, match="forks otherwise"):
+        graph.capture(lambda: None)
+    with pytest.raises(ValueError, match="does not follow"):
+        cuda_graph.Graph("cuda").warm_up(region)
+    outside = cuda_graph.fork(gen)
+    assert outside not in handed[0] and (outside.seed, outside.offset) == (gen.seed, gen.offset)
 
 
 # ---------------------------------------------------------------- card
@@ -510,15 +580,15 @@ def test_the_step_generator_inside_and_around_a_graph_on_card(card):
     step_rng = StepRng()
     gen = step_rng(KEY, 0, card)
     out = {}
-    with steps._on(torch.cuda.Stream(card)):
-        replay = steps._capture(lambda: out.update(t=inside(gen)), gen)
+    graph = cuda_graph.Graph(card, gen)
+    graph.capture(lambda: out.update(t=inside(gen)))
     for step in (0, 1):
         fresh = step_generator(KEY, step, card)
         want = before(fresh) + inside(fresh) + inside(fresh) + after(fresh)
         assert step_rng(KEY, step, card) is gen
         got = before(gen)
         for _ in range(2):
-            replay()
+            graph.replay()
             got += [t.clone() for t in out["t"]]
         got += after(gen)
         for a, b in zip(got, want, strict=True):
@@ -526,20 +596,19 @@ def test_the_step_generator_inside_and_around_a_graph_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("widths,graph,single_forward,decoder_remat", [
-    ("tiny", "step", True, "none"), ("tiny", "step", False, "none"), ("tiny", "d", True, "none"),
-    ("msrvtt", "step", True, "none"), ("msrvtt", "d", True, "none"),
-    ("tiny", "d", True, "full"), ("msrvtt", "d", True, "dots"),
-], ids=["tiny-step", "tiny-step-two-forwards", "tiny-d-substep", "msrvtt-step", "msrvtt-d-substep",
-        "tiny-decoder-remat-full", "msrvtt-decoder-remat-dots"])
-def test_graphed_gan_steps_equal_eager_on_card(card, widths, graph, single_forward, decoder_remat,
-                                               monkeypatch):
-    """Three GAN steps, the learning rates halved before the third: the
-    whole step's graph (or D's substep graph alone: forced, or where G's
-    scan is rematerialized, the rule's own choice) against the eager loop
-    with the same capturable Adam, bitwise (metrics, parameters, both Adam
-    moments, step counters), with a capture in the first graphed part after
-    the warm-up and again after the change."""
+@pytest.mark.parametrize("widths,fields", [
+    ("tiny", {}), ("tiny", {"gan_single_forward": False}), ("msrvtt", {}),
+    ("tiny", {"decoder_remat": "full"}), ("msrvtt", {"decoder_remat": "dots"}),
+    ("tiny", {"disc_remat": "dots"}), ("tiny", {"decoder_remat": "full", "disc_remat": "full"}),
+], ids=["tiny-step", "tiny-step-two-forwards", "msrvtt-step", "tiny-decoder-remat-full",
+        "msrvtt-decoder-remat-dots", "tiny-disc-remat-dots", "tiny-both-remats"])
+def test_graphed_gan_steps_equal_eager_on_card(card, widths, fields, monkeypatch):
+    """Four GAN steps, the learning rates halved before the third: the
+    whole step's graph against the eager loop with the same capturable
+    Adam, bitwise (metrics, parameters, both Adam moments, step counters),
+    without remat and under either (each recompute drawing its forward's
+    masks from a fork that the replay set), with a capture in the first
+    step and again after the change, each then replayed."""
     if widths == "tiny":
         cfg, vocab, n = tiny_test_config(), 50, 4
     else:
@@ -547,17 +616,15 @@ def test_graphed_gan_steps_equal_eager_on_card(card, widths, graph, single_forwa
         run = harness.Run(SimpleNamespace(seed=KEY, seconds=0, trace=0), spec,
                           harness.cell_of(spec, "msrvtt-gan-b128"), 0.0, device=card)
         cfg, vocab, n = run.program_config("training"), run.config["vocab_size"], 16
-    cfg = replace(cfg, gan_single_forward=single_forward, decoder_remat=decoder_remat)
-    if graph == "d" and decoder_remat == "none":
-        monkeypatch.setattr(steps, "step_graph_engaged", lambda dev, cfg, eps_gp: False)
+    cfg = replace(cfg, **fields)
     world = _World(cfg, vocab, card)
-    batches = [_batch(cfg, n, vocab, seed=s) for s in (1, 2, 3)]
+    batches = [_batch(cfg, n, vocab, seed=s) for s in (1, 2, 3, 4)]
     made = _counting_captures(monkeypatch)
     got = _run_steps(world, batches)
     assert len(made) == 2
     with monkeypatch.context() as m:
-        m.setattr(steps, "d_graph_engaged", lambda dev, cfg, eps_gp: False)
-        want = _run_steps(world, batches, capturable=("G", "D") if graph == "step" else ("D",))
+        m.setattr(steps, "step_graph_engaged", lambda dev, cfg, eps_gp: False)
+        want = _run_steps(world, batches, capturable=("G", "D"))
     assert len(made) == 2
     _assert_bitwise(got, want)
 
@@ -565,10 +632,10 @@ def test_graphed_gan_steps_equal_eager_on_card(card, widths, graph, single_forwa
 @pytest.mark.cuda
 def test_re_keyed_step_graphs_give_their_pools_back_on_card(card, monkeypatch):
     """Four new keys in a row (the learning rates halved, as the trainer's
-    milestones do), each followed by a capture and a replay, at the
-    benchmark's MSR-VTT widths: the memory the card holds stays within half
-    a graph's pool of what it held after the first capture, where a pool
-    kept a re-key would add one each time."""
+    milestones do), each step under a new key eager and captured, then a
+    replay, at the benchmark's MSR-VTT widths: the memory the card holds
+    stays within half a graph's pool of what it held after the first
+    capture, where a pool kept a re-key would add one each time."""
     spec = harness.benchmark()
     run = harness.Run(SimpleNamespace(seed=KEY, seconds=0, trace=0), spec,
                       harness.cell_of(spec, "msrvtt-gan-b128"), 0.0, device=card)
@@ -578,7 +645,9 @@ def test_re_keyed_step_graphs_give_their_pools_back_on_card(card, monkeypatch):
     gs, ds, lam = world.states()
     fn = make_gan_train_step(world.gen, world.disc, cfg)
     made = _counting_captures(monkeypatch)
-    gs, ds, lam, _ = fn(gs, ds, lam, batch, KEY, 0.9)  # the warm-up, eager
+    with monkeypatch.context() as m:  # an eager step: what the card holds without a graph
+        m.setattr(steps, "step_graph_engaged", lambda dev, cfg, eps_gp: False)
+        gs, ds, lam, _ = fn(gs, ds, lam, batch, KEY, 0.9)
     torch.cuda.synchronize(card)
     before = torch.cuda.memory_reserved(card)
     reserved = []
@@ -586,7 +655,7 @@ def test_re_keyed_step_graphs_give_their_pools_back_on_card(card, monkeypatch):
         if k:
             for st in (gs, ds):
                 st.set_learning_rate(st.optimizer.param_groups[0]["lr"] / 2)
-        for _ in range(2):  # a capture, then a replay
+        for _ in range(2):  # eager and a capture, then a replay
             gs, ds, lam, m = fn(gs, ds, lam, batch, KEY, 0.9)
         assert torch.isfinite(m["loss_D"])
         torch.cuda.synchronize(card)
@@ -604,8 +673,9 @@ def test_a_checkpoint_of_capturable_adam_then_a_graphed_step_on_card(
     """Two graphed steps, a checkpoint, a third step; against fresh states
     (plain or already capturable) restored from the checkpoint, which makes
     both Adam states capturable with their step counts on the card, as
-    saved, then the third step by a new step function (eager, its warm-up):
-    bitwise; then a fourth step each, the restored side's captured."""
+    saved, then the third step by a new step function (eager, its warm-up,
+    then captured): bitwise; then a fourth step each, the restored side's
+    replayed."""
     cfg = tiny_test_config()
     world = _World(cfg, 50, card)
     batches = [_batch(cfg, 4, 50, seed=s) for s in (1, 2, 3)]

@@ -20,11 +20,13 @@ two-pass decode (fp32, both kernels) gives the single pass's token ids.
 The int8 product (qmatmul) is exact in its integer part and correctly
 rounded elsewhere, so it equals its plain version bitwise (NaN where the
 plain version has NaN), and the int8 decode on the card gives the CPU's
-token ids. Remat (ops/remat.py) on the card: a generator rebuilt from a
-snapshot draws bitwise the same, remat's gradients equal the unwrapped
-function's bitwise, and a tiny bf16 GAN step under each remat field equals
-the step without (metrics rtol 1e-5, tensors atol 2e-5)."""
+token ids. Remat (ops/remat.py) on the card: a fork of a generator draws
+bitwise what the generator draws, also inside a CUDA graph; remat's
+gradients equal the unwrapped function's bitwise, also replayed from a
+graph; and a tiny bf16 GAN step under each remat field equals the step
+without (metrics rtol 1e-5, tensors atol 2e-5)."""
 
+import functools
 from dataclasses import replace
 
 import numpy as np
@@ -740,22 +742,44 @@ def test_prefetch_to_device_on_the_card(card):
 
 
 def test_cuda_generator_snapshot_replays_bitwise(card):
-    """What ops/remat.py's replay rests on, on the card: a generator built
-    on the card from another's `get_state()` (Philox seed and offset) draws
-    bitwise what the other drew from that state, through the dropout draw
-    (`rank_block_rand`), and ends in the same state."""
+    """What ops/remat.py's recompute rests on, on the card: a fork of a
+    generator (`clone_state`, utils/cuda_graph.py::fork) draws bitwise what
+    the generator draws from there, through the dropout draw
+    (`rank_block_rand`), and leaves the generator where it was; inside a
+    CUDA graph that follows the generator, the fork that the graph's
+    warm-up made, registered with the graph and set before each replay,
+    draws what the generator drew there, under two seeds."""
     from dlsg_tpu_torch.parallel.dist import rank_block_rand
+    from dlsg_tpu_torch.utils.cuda_graph import Graph, fork
+
+    def draws(gen):
+        torch.rand(3, generator=gen, device=card)  # a position past the seed's
+        again = fork(gen)
+        first = [rank_block_rand((7, 1000), gen, card), torch.rand(33, generator=gen, device=card)]
+        second = [rank_block_rand((7, 1000), again, card), torch.rand(33, generator=again, device=card)]
+        return first, second
 
     gen = torch.Generator(device=card).manual_seed(5)
-    torch.rand(3, generator=gen, device=card)  # a state past the seed's
-    snapshot = gen.get_state()
-    first = [rank_block_rand((7, 1000), gen, card), torch.rand(33, generator=gen, device=card)]
-    local = torch.Generator(device=card)
-    local.set_state(snapshot)
-    again = [rank_block_rand((7, 1000), local, card), torch.rand(33, generator=local, device=card)]
-    for a, b in zip(first, again):
+    first, second = draws(gen)
+    for a, b in zip(first, second, strict=True):
         assert torch.equal(a, b)
-    assert torch.equal(local.get_state(), gen.get_state())
+    plain = torch.Generator(device=card).manual_seed(5)
+    torch.rand(3, generator=plain, device=card)
+    rank_block_rand((7, 1000), plain, card), torch.rand(33, generator=plain, device=card)
+    assert torch.equal(gen.get_state(), plain.get_state())
+
+    graph = Graph(card, gen)
+    gen.manual_seed(5)
+    graph.warm_up(lambda: draws(gen))
+    graph.capture(lambda: draws(gen))
+    for seed in (11, 5):
+        fresh = torch.Generator(device=card).manual_seed(seed)
+        want, _ = draws(fresh)
+        gen.manual_seed(seed)
+        first, second = graph.replay()
+        for a, b, c in zip(first, second, want, strict=True):
+            assert torch.equal(a, c) and torch.equal(b, c)
+        assert gen.get_offset() == fresh.get_offset()
 
 
 @pytest.mark.parametrize("policy", ["dots", "full"])
@@ -795,6 +819,44 @@ def test_remat_on_card_equals_the_unwrapped_function(card, policy, monkeypatch):
     assert torch.equal(gen.get_state(), after)
     if policy == "dots":
         assert saved and all(s.startswith("aten.mm") for s in saved), saved
+
+
+@pytest.mark.parametrize("policy", ["dots", "full"])
+def test_a_remat_region_replayed_from_a_graph_equals_eager_on_card(card, policy):
+    """A remat region (a bf16 product under dropout from a card generator,
+    after another draw) and its backward, warmed up and captured as one
+    CUDA graph that follows the generator (utils/cuda_graph.py), then
+    replayed under three seeds: each replay's gradients equal the eager
+    region's bitwise, the recompute drawing the forward's masks from the
+    fork that the replay set, and the generator ends where one eager
+    forward leaves it."""
+    from dlsg_tpu_torch.ops.remat import remat
+    from dlsg_tpu_torch.utils.cuda_graph import Graph
+
+    rs = np.random.default_rng(12)
+    x = torch.tensor(rs.normal(size=(64, 96)), dtype=torch.bfloat16, device=card, requires_grad=True)
+    w = torch.tensor(rs.normal(size=(96, 80)), dtype=torch.bfloat16, device=card, requires_grad=True)
+
+    def fn(a, rng=None):
+        return torch.tanh(linear.dropout(matmul_f32(a, w), 0.3, rng)) ** 2
+
+    def region(gen, wrap):
+        shift = torch.rand(1, generator=gen, device=card)  # the fork stands past the seed
+        out = (wrap(fn, gen)(x) + shift).sum()
+        return torch.autograd.grad(out, (x, w))
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    graph = Graph(card, gen)
+    graph.warm_up(lambda: region(gen, lambda f, g: remat(f, policy, g)))
+    graph.capture(lambda: region(gen, lambda f, g: remat(f, policy, g)))
+    for seed in (2, 3, 1):
+        fresh = torch.Generator(device=card).manual_seed(seed)
+        want = region(fresh, lambda f, g: functools.partial(f, rng=g))
+        gen.manual_seed(seed)
+        got = graph.replay()
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+        assert gen.get_offset() == fresh.get_offset()
 
 
 @pytest.mark.parametrize("fields", [{"decoder_remat": "dots"}, {"decoder_remat": "full"},
