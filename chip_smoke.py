@@ -469,9 +469,7 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    out = {lib.name: lib.launches for lib in kernels.LIBRARIES}
-    out.update({f"vocab_head[{r}]": n for r, n in ROUTE_LAUNCHES.items()})
-    return out
+    return kernels.launch_counts()
 
 
 def bound_ms(ops: float, peak_ops: float, nbytes: float):

@@ -38,7 +38,8 @@ from dlsg_tpu_torch.config import DLSGConfig
 from dlsg_tpu_torch.device import DeviceLike, resolve_device
 from dlsg_tpu_torch.kernels.vocab_head import vocab_head_topk
 from dlsg_tpu_torch.models.decoder import expand_pre_to_beams
-from dlsg_tpu_torch.ops.beam_search import beam_search
+from dlsg_tpu_torch.ops.beam_search import StepGraphs, beam_search
+from dlsg_tpu_torch.ops.quant import QuantWeight
 from dlsg_tpu_torch.ops.topk import top_k
 from dlsg_tpu_torch.parallel import dist
 from dlsg_tpu_torch.utils.profiler import span
@@ -190,34 +191,54 @@ def _make_beam_from_feats(model, cfg: DLSGConfig, beam: int) -> Callable:
     """The encoder outputs -> beam-decode core: fn(obj, mot, max_steps) ->
     (preds [B, beam, T], log_probs [B, beam], alphas [B, beam, T, P'],
     finished [B]), P' the attention's width (module doc); `mot` is None
-    for a single-modal generator."""
+    for a single-modal generator.
+
+    The later steps read the expanded encoder outputs and the weights as
+    the beam's invariants (without pre's vocab projection where the fused
+    head reads its own), and replay from one CUDA graph a key where
+    `ops/beam_search.py` finds it engages: on a card, for a state whose
+    shapes hold (D-LSG's LSTM state does; Kimi-VL's growing suffix does
+    not, and its own step graphs run inside step_fn). A head split over a
+    model axis (its all-gather) and the int8 decode (`qmatmul`) keep the
+    loop eager: their steps are handed no graphs. The graphs live as long
+    as fn (`fn.graphs`), keyed under what the step reads and calls outside
+    its tokens, state and invariants: the model's parameters by address,
+    its step and the head's function as found (a plain version put in the
+    kernel's place is captured anew)."""
     fused = _use_fused_head(cfg)
+    graphs = StepGraphs(owner=lambda: (
+        tuple(p.data_ptr() for p in model.parameters()), vocab_head_topk,
+        model.decoder_beam_step_hidden, model.decoder_beam_step))
 
     def beam_from_feats(obj, mot, max_steps: int):
         state, pre = model.decoder_init_beam_state(obj, mot)
         B = obj.shape[0]
         # the batch-axis invariants expanded to [B*beam] once, not per step
-        pre_x = expand_pre_to_beams(pre, beam)
+        inv = {"pre": expand_pre_to_beams(pre, beam)}
+        shard = model.decoder_vocab_shard()
+        graphed = shard is None and not any(isinstance(v, QuantWeight) for v in pre.values())
+
+        def pre_of(tokens, inv):
+            # the first step runs un-expanded on [B] (one beam: pre_x is pre)
+            return pre if tokens.shape[0] != B * beam else inv["pre"]
 
         if fused:
-            wv, bv = model.decoder_vocab_head()
-            shard = model.decoder_vocab_shard()
+            inv["pre"] = {k: v for k, v in inv["pre"].items() if k not in ("Wv", "bv")}
+            inv["wv"], inv["bv"] = model.decoder_vocab_head()
 
-            def step_fn(tokens, st):
-                # the first step runs un-expanded on [B]
-                p = pre if tokens.shape[0] == B else pre_x
+            def step_fn(tokens, st, inv):
+                p = pre_of(tokens, inv)
                 hid, new_st, alpha = model.decoder_beam_step_hidden(tokens, st, p)
                 if shard is None:
-                    vals, ids = vocab_head_topk(hid, wv, bv, beam, normalize=True)
+                    vals, ids = vocab_head_topk(hid, inv["wv"], inv["bv"], beam, normalize=True)
                 else:
-                    vals, ids = sharded_vocab_head_topk(hid, wv, bv, beam, shard[0])
+                    vals, ids = sharded_vocab_head_topk(hid, inv["wv"], inv["bv"], beam, shard[0])
                 return vals, ids, new_st, alpha
 
         else:
 
-            def step_fn(tokens, st):
-                p = pre if tokens.shape[0] == B else pre_x
-                return model.decoder_beam_step(tokens, st, p)
+            def step_fn(tokens, st, inv):
+                return model.decoder_beam_step(tokens, st, pre_of(tokens, inv))
 
         start = torch.full((B,), START_ID, dtype=torch.int64, device=obj.device)
         with span("decode.beam"):
@@ -235,6 +256,9 @@ def _make_beam_from_feats(model, cfg: DLSGConfig, beam: int) -> Callable:
                 fast_lse=cfg.decode_fast_lse and cfg.decode_quant == "none",
                 approx_topk_recall=cfg.decode_approx_topk,
                 return_finished=True,
+                invariants=inv,
+                graphs=graphs if graphed else None,
             )
 
+    beam_from_feats.graphs = graphs
     return beam_from_feats

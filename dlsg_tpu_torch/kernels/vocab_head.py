@@ -211,6 +211,25 @@ class PreparedHead:
     def dtype(self) -> torch.dtype:
         return self.w.dtype
 
+    def empty_like(self) -> "PreparedHead":
+        """A head of this one's shape and layout in storage of its own, with
+        its own TMA map (its values unset): what a CUDA graph reads in place
+        of each decode's head, which `copy_` writes there."""
+        if self.parts is None and self.map is not None:
+            w = aligned_rows(self.w)  # bf16 rows TMA reads, as prepare_head lays them out
+            return PreparedHead(w, None, _w_map(LIBRARY.load(), w))
+        w = torch.empty_strided(self.w.shape, self.w.stride(), dtype=self.w.dtype, device=self.device)
+        if self.parts is None:
+            return PreparedHead(w, None, None)
+        parts = torch.empty_like(self.parts)
+        return PreparedHead(w, parts, None if self.map is None else _split_map(LIBRARY.load(), parts))
+
+    def copy_(self, src: "PreparedHead") -> None:
+        """This head's storage refilled from `src`, a head of its layout."""
+        self.w.copy_(src.w)
+        if self.parts is not None:
+            self.parts.copy_(src.parts)
+
 
 def split_head(w: torch.Tensor) -> PreparedHead:
     """fp32 w [H, V] (any strides) split into TF32 hi and lo, K-major: on a
@@ -233,12 +252,18 @@ def split_head(w: torch.Tensor) -> PreparedHead:
                                           parts.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
     ROUTE_LAUNCHES["tf32_split"] += 1
     LIBRARY.check(err)
+    return PreparedHead(w, parts, _split_map(lib, parts))
+
+
+def _split_map(lib, parts: torch.Tensor) -> ctypes.Array:
+    """The TMA map of a split w's parts [2, V, Hp]."""
+    _, V, Hp = parts.shape
     buf = ctypes.create_string_buffer(lib.vocab_head_map_bytes())
     err = lib.vocab_head_encode_split_map(buf, parts.data_ptr(), V, Hp)
     if err:
         raise RuntimeError(f"vocab_head: cuTensorMapEncodeTiled failed ({err}) for the split w "
                            f"[2, {V}, {Hp}]")
-    return PreparedHead(w, parts, buf)
+    return buf
 
 
 def prepare_head(w: torch.Tensor, dtype: torch.dtype) -> Union[torch.Tensor, PreparedHead]:

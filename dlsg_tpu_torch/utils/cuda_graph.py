@@ -6,7 +6,10 @@ A `Graph` is a part of the program run eagerly once (`warm_up`), recorded
 each replay). A card's graphs all warm up and capture on one side stream:
 the default stream cannot capture, a stream that has run the work captures
 faster, and the allocator reuses a stream's freed blocks and its cuBLAS
-workspace only on that stream. The capture takes
+workspace only on that stream. The kernels' launch counters
+(`kernels.launch_counts`) count what the card runs: the capture launches
+nothing and counts nothing, and each replay counts the launches that the
+capture's calls recorded. The capture takes
 `capture_error_mode="thread_local"` (a feed's thread may wait on its own
 copies meanwhile) and, unlike `torch.cuda.graph`, leaves the caches as
 they are: emptying them costs set-up time and frees nothing that the
@@ -29,6 +32,8 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from dlsg_tpu_torch import kernels
 
 _forking = threading.local()  # the rule `fork` follows inside a warm-up or capture
 _streams: Dict[torch.device, torch.cuda.Stream] = {}  # each card's side stream (module doc)
@@ -78,6 +83,7 @@ class Graph:
         self.forks: List[Tuple[torch.Generator, int]] = []  # (fork, how far rng had drawn)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
+        self.launches: Dict[str, int] = {}  # what a replay adds to the launch counters
 
     def warm_up(self, fn: Callable[[], Any]) -> Any:
         """fn() eagerly on the graph's stream, the forks of `rng` noted;
@@ -110,20 +116,26 @@ class Graph:
                 raise RuntimeError("the capture forks otherwise than its warm-up")
             return f
 
+        before = kernels.launch_counts()
         with _on(self.stream), _forks(take):
             graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
             try:
                 self.outputs = fn()
             finally:
                 graph.capture_end()
+                recorded = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+                self.launches = {k: n for k, n in recorded.items() if n}
+                kernels.add_launches({k: -n for k, n in self.launches.items()})
         if next(forks, None) is not None:
             raise RuntimeError("the capture forks otherwise than its warm-up")
         self.graph, self.pool = graph, graph.pool()
 
     def replay(self) -> Any:
-        """The graph run once, its forks set first; fn's outputs."""
+        """The graph run once, its forks set first, its launches counted;
+        fn's outputs."""
         for f, drawn in self.forks:
             f.manual_seed(self.rng.initial_seed())
             f.set_offset(self.rng.get_offset() + drawn)
         self.graph.replay()
+        kernels.add_launches(self.launches)
         return self.outputs

@@ -114,7 +114,9 @@ def test_kimi_vl_at_published_widths_against_the_reference(card):
 @torch.inference_mode()
 def test_graphed_beam_steps_equal_eager_ones(card):
     """Beam-5 decodes of 4 clips, 6 steps, twice with the steps' graphs
-    (captured by the first) and once eagerly: token ids and scores bitwise."""
+    (captured by the first) and once eagerly: token ids and scores bitwise.
+    The suffix grows a token a step, so the beam makes no graph of its own
+    (ops/beam_search.py)."""
     from dlsg_tpu_torch.config import DLSGConfig
     from dlsg_tpu_torch.evaluation.decode import _make_beam_from_feats
 
@@ -123,14 +125,16 @@ def test_graphed_beam_steps_equal_eager_ones(card):
     m.load_state_dict(_weights(c, card))
     dcfg = DLSGConfig(beam_size=5, max_words=6, use_fused_vocab_head="on")
     feats = torch.randn(4, *cfg.feature_shape, device=card, generator=torch.Generator(card).manual_seed(5))
+    fn = _make_beam_from_feats(m, dcfg, 5)
 
     def decode():
         obj, _ = m.encode(feats)
-        preds, lp, _, _ = _make_beam_from_feats(m, dcfg, 5)(obj, None, 6)
+        preds, lp, _, _ = fn(obj, None, 6)
         return preds, lp
 
     graphed = [decode(), decode()]
     assert len(m._graphs) == 6  # one a step, reused by the second decode
+    assert fn.graphs.graphs == {}
 
     def eager_step(tokens, state, pre):
         hid, new = m._step(tokens, state["suffix"], pre["prefix"])

@@ -169,10 +169,12 @@ def _scripted_beam(early_exit=True):
 
 def test_beam_counts_each_step_that_runs_and_its_live_hypotheses():
     """Rows end at steps 2 and 4: loop steps 1-4 run (4 x B*beam = 16
-    hypothesis steps), with 4, 4, 2, 2 live; step 5 finds none and exits."""
+    hypothesis steps), with 4, 4, 2, 2 live; step 5 finds none and exits.
+    No step replays from a graph: the caller keeps none."""
     plain = _scripted_beam()
     traced, _ = _trace(_scripted_beam)
-    assert profiler.counters() == {"beam.hyp_steps": 16, "beam.live_hyp_steps": 12}
+    assert profiler.counters() == {"beam.hyp_steps": 16, "beam.live_hyp_steps": 12,
+                                   "beam.steps": 4, "beam.steps_graphed": 0}
     for a, b in zip(plain, traced):
         assert torch.equal(a, b)
     ends = (plain[0][:, 0] == END).int().argmax(dim=-1)
